@@ -1,0 +1,99 @@
+"""Feature store backends (counterpart of
+transductive_clip_tpu/features/store.py).
+
+``plk`` (the reference-compatible pickle) and ``npz`` (compressed numpy
+archives) read and write the same files as the JAX package. ``orbax`` (JAX
+PyTree checkpoints) is not ported: opening it raises ``NotImplementedError``
+(ROADMAP.md, "Modules still to port").
+
+``open_store(kind)`` returns an object with save(path, features, labels) /
+load(path) -> (features, labels); loading dispatches on the path's suffix.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+class PickleStore:
+    """Reference-compatible pickle payload
+    {'concat_features', 'concat_labels'} (reference: src/utils.py:299-306)."""
+
+    suffix = ".plk"
+
+    def save(self, path, features, labels):
+        from ..core.io import save_pickle
+
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_pickle(
+            path,
+            {
+                "concat_features": np.asarray(features, np.float32),
+                "concat_labels": np.asarray(labels, np.int64),
+            },
+        )
+
+    def load(self, path):
+        from ..core.io import load_pickle
+
+        d = load_pickle(path)
+        return (
+            np.asarray(d["concat_features"], np.float32),
+            np.asarray(d["concat_labels"], np.int64),
+        )
+
+
+class NpzStore:
+    suffix = ".npz"
+
+    def save(self, path, features, labels):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(
+            path,
+            concat_features=np.asarray(features, np.float32),
+            concat_labels=np.asarray(labels, np.int64),
+        )
+
+    def load(self, path):
+        with np.load(path) as z:
+            return (
+                z["concat_features"].astype(np.float32),
+                z["concat_labels"].astype(np.int64),
+            )
+
+
+class OrbaxStore:
+    suffix = ".orbax"
+
+    def _unported(self):
+        raise NotImplementedError(
+            "the orbax feature store is a JAX checkpoint format and is not "
+            "ported (ROADMAP.md: 'orbax feature store'); use feature_store "
+            "plk or npz"
+        )
+
+    def save(self, path, features, labels):
+        self._unported()
+
+    def load(self, path):
+        self._unported()
+
+
+_STORES = {"plk": PickleStore, "pickle": PickleStore, "npz": NpzStore,
+           "orbax": OrbaxStore}
+
+
+def open_store(kind: str = "plk"):
+    if kind not in _STORES:
+        raise ValueError(f"Unknown feature store {kind!r}; choose from {sorted(_STORES)}")
+    return _STORES[kind]()
+
+
+def store_for_path(path: str):
+    """The store whose suffix matches ``path`` (caches self-describe)."""
+    for cls in _STORES.values():
+        if path.endswith(cls.suffix):
+            return cls()
+    raise ValueError(f"No feature store for path {path!r}")

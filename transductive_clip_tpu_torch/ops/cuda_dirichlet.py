@@ -1,0 +1,241 @@
+"""Dirichlet concentration row solves on the card (counterpart of
+transductive_clip_tpu/ops/pallas_dirichlet.py).
+
+Two kernels written in CUDA C++ for sm_90a (``csrc/dirichlet_solve.cu``):
+
+* ``dirichlet_row_solve`` (K1) — Minka's fixed point, the TPU kernel
+  ``_solver_kernel`` behind ``dirichlet_solver: pallas``;
+* ``mm_row_solve`` (K2) — the reference MM surrogate iteration, the TPU
+  kernel ``_mm_kernel`` behind ``dirichlet_solver: mm_pallas``.
+
+Each solves psi(a_d) - psi(sum a) = y_d for every cluster row of
+alpha0, y: [N, R, K] fp32, with a block of ``min(128, round_up(R, 8))`` rows
+of one task stopping together, and keeps the ``ROW_FREEZE`` sentinel
+contract: a row whose first y lane is >= ROW_FREEZE / 2 comes back with its
+incoming alpha, bit for bit, and is left out of the stop criterion.
+
+Each wrapper takes its plain torch version — same blocks, masks, sentinel
+and stop rule — for tensors on the CPU, and only then; for CUDA tensors it
+launches the kernel or raises. ``<wrapper>.launches`` counts the launches.
+The plain versions play the role Pallas interpret mode plays for the JAX
+package: the CPU tests run them, and chip_smoke.py holds the kernels
+against them on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import kernel_build
+from .common import to_host
+from .dirichlet import TRIGAMMA_1
+from .special import digamma_pos, inv_digamma, lgamma_pos
+
+# Row-freeze sentinel (see the module docstring). Genuine y entries are
+# weighted means of log(simplex + eps), always <= ~1e-15, and the
+# empty-cluster fill is -10, so a positive value cannot occur naturally.
+ROW_FREEZE = 1.0
+SOURCE = "dirichlet_solve.cu"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def block_rows_for(n_rows: int, block_rows: int = 128) -> int:
+    """Rows per stopping block, as the TPU kernels tile them."""
+    return min(block_rows, _round_up(n_rows, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = kernel_build.load(SOURCE)
+    lib.tclip_dirichlet_row_solve.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                              _F, _I, _P]
+    lib.tclip_dirichlet_row_solve.restype = _I
+    lib.tclip_mm_row_solve.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                       _I, _P]
+    lib.tclip_mm_row_solve.restype = _I
+    lib.tclip_error_string.argtypes = [_I]
+    lib.tclip_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_cpu(alpha0, y_cst) -> bool:
+    return alpha0.device.type == "cpu" and y_cst.device.type == "cpu"
+
+
+def _check_inputs(name, alpha0, y_cst):
+    for t, what in ((alpha0, "alpha0"), (y_cst, "y_cst")):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {what} is on {t.device}; both inputs "
+                             "must be on the same CUDA device (or both on "
+                             "the CPU for the plain version)")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+        if t.dim() != 3:
+            raise ValueError(f"{name}: {what} must be [N, R, K], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if alpha0.device != y_cst.device:
+        raise ValueError(f"{name}: inputs on {alpha0.device} and {y_cst.device}")
+    if alpha0.shape != y_cst.shape:
+        raise ValueError(f"{name}: shapes {tuple(alpha0.shape)} and "
+                         f"{tuple(y_cst.shape)} differ")
+    n, r, k = alpha0.shape
+    if not (0 < n <= 65535 and r > 0 and k > 0):
+        raise ValueError(f"{name}: unsupported shape {tuple(alpha0.shape)} "
+                         "(need 0 < N <= 65535, R > 0, K > 0)")
+
+
+def _launch(name, fn, alpha0, y_cst, *args):
+    out = torch.empty_like(alpha0)
+    n, r, k = alpha0.shape
+    lib = _library()
+    with torch.cuda.device(alpha0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(alpha0.data_ptr(), y_cst.data_ptr(),
+                              out.data_ptr(), n, r, k, *args, stream)
+    if rc != 0:
+        msg = lib.tclip_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} (cuda error {rc})")
+    return out
+
+
+def dirichlet_row_solve(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
+                        newton_iters: int = 3, block_rows: int = 128):
+    """K1: Minka fixed-point solve of every cluster row (see the module
+    docstring). alpha0, y_cst: [N, R, K] fp32; returns alpha, same shape."""
+    if _on_cpu(alpha0, y_cst):
+        return dirichlet_row_solve_reference(
+            alpha0, y_cst, max_iters=max_iters, tol=tol,
+            newton_iters=newton_iters, block_rows=block_rows)
+    _check_inputs("dirichlet_row_solve", alpha0, y_cst)
+    out = _launch("dirichlet_row_solve", "tclip_dirichlet_row_solve", alpha0,
+                  y_cst, block_rows_for(alpha0.shape[1], block_rows),
+                  max_iters, tol, newton_iters)
+    dirichlet_row_solve.launches += 1
+    return out
+
+
+dirichlet_row_solve.launches = 0
+
+
+def mm_row_solve(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
+                 check_every: int = 50, block_rows: int = 128):
+    """K2: the reference MM iteration for every cluster row (see the module
+    docstring). alpha0, y_cst: [N, R, K] fp32; returns alpha, same shape."""
+    if _on_cpu(alpha0, y_cst):
+        return mm_row_solve_reference(
+            alpha0, y_cst, iter_mm=iter_mm, tol=tol, check_every=check_every,
+            block_rows=block_rows)
+    _check_inputs("mm_row_solve", alpha0, y_cst)
+    out = _launch("mm_row_solve", "tclip_mm_row_solve", alpha0, y_cst,
+                  block_rows_for(alpha0.shape[1], block_rows), iter_mm, tol,
+                  check_every)
+    mm_row_solve.launches += 1
+    return out
+
+
+mm_row_solve.launches = 0
+
+
+# ---- plain versions ----------------------------------------------------------
+
+def _blocked(alpha0, y_cst, block_rows):
+    """Rows padded with frozen sentinel rows to whole blocks and viewed as
+    [N, n_blocks, bk, K], plus the live-row mask [N, n_blocks, bk, 1]."""
+    n, r, k = alpha0.shape
+    bk = block_rows_for(r, block_rows)
+    rp = _round_up(r, bk)
+    pad = (0, 0, 0, rp - r)
+    a = torch.nn.functional.pad(alpha0, pad, value=1.0)
+    y = torch.nn.functional.pad(y_cst, pad, value=ROW_FREEZE)
+    a = a.reshape(n, rp // bk, bk, k)
+    y = y.reshape(n, rp // bk, bk, k)
+    return a, y, y[..., :1] < ROW_FREEZE / 2
+
+
+def _block_crit(new, a, live):
+    num = ((new - a) ** 2).sum((-2, -1))
+    den = (torch.where(live, a, 0.0) ** 2).sum((-2, -1))
+    return num / torch.clamp_min(den, 1e-30)
+
+
+def _unblocked(a, shape):
+    n, r, k = shape
+    return a.reshape(n, -1, k)[:, :r].contiguous()
+
+
+def dirichlet_row_solve_reference(alpha0, y_cst, max_iters: int = 60,
+                                  tol: float = 1e-11, newton_iters: int = 3,
+                                  block_rows: int = 128,
+                                  return_iters: bool = False):
+    """Plain torch version of K1: the same blocks, sentinel and stop rule.
+    With ``return_iters`` also returns each block's executed iteration
+    count [N, n_blocks]."""
+    a, y, live = _blocked(alpha0, y_cst, block_rows)
+    active = torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
+    iters = torch.zeros(a.shape[:2], dtype=torch.int64, device=a.device)
+    for _ in range(max_iters):
+        s = a.sum(-1, keepdim=True)
+        new = inv_digamma(digamma_pos(s) + y, newton_iters=newton_iters)
+        new = torch.where(live, new, a)
+        crit = _block_crit(new, a, live)
+        a = torch.where(active[..., None, None], new, a)
+        iters += active
+        active = active & (crit >= tol)
+        if not to_host(active.any()):
+            break
+    out = _unblocked(a, alpha0.shape)
+    return (out, iters) if return_iters else out
+
+
+def mm_row_solve_reference(alpha0, y_cst, iter_mm: int = 1000,
+                           tol: float = 1e-11, check_every: int = 50,
+                           block_rows: int = 128, return_iters: bool = False):
+    """Plain torch version of K2: the same blocks, sentinel and schedule.
+    With ``return_iters`` also returns each block's executed update count
+    [N, n_blocks]."""
+    a, y, live = _blocked(alpha0, y_cst, block_rows)
+
+    def step(a):
+        digam = digamma_pos(a + 1.0)
+        curv = torch.where(
+            a > 1e-11,
+            torch.abs(2.0 * (digam * a - lgamma_pos(a + 1.0)) / (a * a)),
+            torch.full_like(a, TRIGAMMA_1),
+        )
+        b = digam - digamma_pos(a.sum(-1, keepdim=True)) - curv * a - y
+        new = (-b + torch.sqrt(b * b + 4.0 * curv)) / (2.0 * curv)
+        return torch.where(live, new, a)
+
+    first = min(check_every, iter_mm)
+    for _ in range(first):
+        a = step(a)
+    active = torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
+    iters = torch.full(a.shape[:2], first, dtype=torch.int64, device=a.device)
+    it = first
+    while it < iter_mm:
+        # checked step: one update, the criterion on its single-step delta
+        new = step(a)
+        converged = _block_crit(new, a, live) < tol
+        a = torch.where(active[..., None, None], new, a)
+        rem = min(check_every - 1, iter_mm - it - 1)
+        iters += active * (1 + rem * ~converged)
+        active = active & ~converged
+        if not to_host(active.any()):
+            break
+        for _ in range(rem):
+            a = torch.where(active[..., None, None], step(a), a)
+        it += 1 + rem
+    out = _unblocked(a, alpha0.shape)
+    return (out, iters) if return_iters else out
