@@ -1,13 +1,15 @@
 #!/usr/bin/env python
-"""CLI entry point of the port, zero-shot only (counterpart of
-transductive_clip_tpu/cli.py; reference: main.py):
+"""CLI entry point of the port (counterpart of transductive_clip_tpu/cli.py;
+reference: main.py):
 
     python -m transductive_clip_tpu_torch.cli --opts shots 0 dataset imagenet \
         method em_dirichlet number_tasks 1000 batch_size 100 ...
+    python -m transductive_clip_tpu_torch.cli --opts shots 4 dataset imagenet \
+        method alpha_tim tim_grad_impl pallas number_tasks 1000 batch_size 100
 
-It runs on ``cuda:{device}`` from the cached features and raises without a
-CUDA device. Few-shot (shots > 0) and feature extraction raise until their
-slices are ported.
+shots > 0 runs the few-shot evaluator, shots == 0 the zero-shot one. It runs
+on ``cuda:{device}`` from the cached features and raises without a CUDA
+device; feature extraction raises until its slice is ported.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ import torch
 
 from .core.config import load_full_config
 from .core.logger import Logger, get_log_file
-from .eval import EvaluatorZeroShot
-from .methods.base import unported
+from .eval import EvaluatorFewShot, EvaluatorZeroShot
 
 
 def parse_args(argv=None):
@@ -35,8 +36,6 @@ def parse_args(argv=None):
 def main(argv=None):
     """Run one evaluation; returns (mean accuracy, mean seconds per task)."""
     args = parse_args(argv)
-    if args.shots > 0:
-        raise unported("few-shot evaluation", "'few-shot with K3'")
     if args.seed is not None:
         random.seed(args.seed)
         np.random.seed(args.seed)
@@ -46,7 +45,8 @@ def main(argv=None):
         log_path=args.log_path, dataset=args.dataset, method=args.name_method
     )
     Logger(__name__, log_file)
-    evaluator = EvaluatorZeroShot(args=args, log_file=log_file)
+    evaluator_cls = EvaluatorFewShot if args.shots > 0 else EvaluatorZeroShot
+    evaluator = evaluator_cls(args=args, log_file=log_file)
     return evaluator.run_full_evaluation()
 
 

@@ -25,16 +25,13 @@ from ..features.cache import (
     visual_cache_path,
 )
 from ..methods import get_zero_shot_method
-from ..methods.base import unported
+from ..methods.base import PIPELINES, unported
 from ..ops.common import resolve_device
 from ..tasks import (
     CategoriesSamplerZeroShot,
     SamplerQueryZeroShot,
     TasksGeneratorZeroShot,
 )
-
-_PIPELINES = "'evaluator pipelines and device auction'"
-
 
 def _parse_flag(val, name):
     """Parse a CLI/config boolean that may arrive as a string; raises on
@@ -57,17 +54,19 @@ def _flag_or_auto_off(args, key):
     return _parse_flag(val, key)
 
 
-def check_supported(args):
-    """Raise for the evaluator options whose paths are still to port."""
+def check_supported(args, matching=True):
+    """Raise for the evaluator options whose paths are still to port
+    (``matching``: whether the method's accuracy path matches clusters to
+    classes, so that ``matching_backend`` applies)."""
     if _flag_or_auto_off(args, "defer_fetch"):
         raise unported("defer_fetch True (the deferred-fetch pipeline)",
-                       _PIPELINES)
+                       PIPELINES)
     if _flag_or_auto_off(args, "fused_dispatch"):
         raise unported("fused_dispatch True (the fused one-dispatch "
-                       "pipeline)", _PIPELINES)
-    if str(args.get("matching_backend", "auto")) == "device":
+                       "pipeline)", PIPELINES)
+    if matching and str(args.get("matching_backend", "auto")) == "device":
         raise unported("matching_backend: device (the batched auction)",
-                       _PIPELINES)
+                       PIPELINES)
     if _parse_flag(args.get("data_parallel", False), "data_parallel"):
         raise unported("data_parallel True", "'multi-device'")
 

@@ -1,5 +1,5 @@
-"""Shared machinery for transductive methods: the zero-shot subset of
-transductive_clip_tpu/methods/base.py.
+"""Shared machinery for transductive methods (counterpart of
+transductive_clip_tpu/methods/base.py, along its blocking path).
 
 Every method's math is a function of tensors on ``self.device`` (the card,
 unless the caller passed ``device="cpu"``), batched over the leading task
@@ -9,8 +9,8 @@ reference-compatible ``run_task(task_dic) -> logs`` API
 and run the once-per-batch cluster->class matching on the host.
 
 Not ported yet (ROADMAP.md): the deferred and fused evaluator pipelines
-(``run_task_deferred``, ``run_task_fused``), the device auction
-(``matching_backend: device``), and the few-shot ``FewShotMethod``.
+(``run_task_deferred``, ``run_task_fused`` raise) and the device auction
+(``matching_backend: device``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ from ..ops.common import (
     top_rows,
 )
 from ..ops.matching import basic_matching, cluster_prototypes, hungarian_matching
+
+
+# the ROADMAP.md item of the deferred and fused pipelines and the auction
+PIPELINES = "'evaluator pipelines and device auction'"
 
 
 def unported(what: str, roadmap_item: str):
@@ -91,7 +95,7 @@ def _matching_backend(cfg):
         backend = "host"
     if backend == "device":
         raise unported("matching_backend: device (the batched auction)",
-                       "'evaluator pipelines and device auction'")
+                       PIPELINES)
     return backend
 
 
@@ -305,6 +309,22 @@ def timing_logs(elapsed, n_task, n_iter, iter_widths=None):
     }
 
 
+def narrow_phase_widths(n_used, n_full, n_task, task_chunk, narrow):
+    """Per-iteration relative costs for ``timing_logs`` when a method ran
+    its first ``n_full`` iterations at the full batch width (the chunk
+    width under ``task_chunk``) and the rest at a narrow straggler width
+    ``narrow``; None (uniform) when no narrow phase ran."""
+    n = max(int(round(float(n_used))), 1)
+    if n_full is None or n_full >= n:
+        return None
+    full_w = int(n_task)
+    if 0 < task_chunk < n_task and n_task % task_chunk == 0:
+        full_w = task_chunk
+    w = np.full(n, float(min(max(int(narrow), 1), full_w)))
+    w[:max(int(n_full), 0)] = float(full_w)
+    return w
+
+
 def resolve_exec_count(n_exec):
     """Normalise a method's executed-count output to (n_used, n_full):
     a length-2 ``[total, full_width]`` vector (task compaction) or a
@@ -429,11 +449,18 @@ class TransductiveMethod:
                                             device=self.device)
         return query, y_q, text_features
 
-    def run_task(self, task_dic, shot=None):
+    def _prepare_task(self, task_dic):
+        """The task dict ``_infer`` takes (tensors on ``self.device``) and
+        the host query labels [N, n]."""
         query, y_q, text_features = self._prepare_zero_shot(task_dic)
         task = dict(task_dic)
         task["x_q"] = query
         task["text_features"] = text_features
+        return task, y_q
+
+    def run_task(self, task_dic, shot=None):
+        task, y_q = self._prepare_task(task_dic)
+        query, text_features = task["x_q"], task["text_features"]
 
         t0 = time.perf_counter()
         self._untimed_overhead_s = 0.0
@@ -471,3 +498,29 @@ class TransductiveMethod:
             "criterions": criterions,
             **self._timing_logs_for(elapsed, n_task, n_exec, criterions),
         }
+
+
+class FewShotMethod(TransductiveMethod):
+    """Base of the few-shot methods: support features and labels ride with
+    the query, and accuracy is the direct argmax."""
+
+    acc_mode = "direct"
+
+    def _prepare_task(self, task_dic):
+        task, y_q = super()._prepare_task(task_dic)
+        y_s = np.asarray(task_dic["y_s"])
+        if y_s.ndim == 3:
+            y_s = y_s.squeeze(2)
+        task["x_s"] = torch.as_tensor(task_dic["x_s"], dtype=torch.float32,
+                                      device=self.device)
+        task["y_s"] = torch.as_tensor(y_s, dtype=torch.int64,
+                                      device=self.device)
+        return task, y_q
+
+    def run_task_fused(self, *args, **kwargs):
+        raise unported("run_task_fused (the fused one-dispatch pipeline)",
+                       PIPELINES)
+
+    def run_task_deferred(self, *args, **kwargs):
+        raise unported("run_task_deferred (the deferred-fetch pipeline)",
+                       PIPELINES)

@@ -1,19 +1,30 @@
-"""Method registry (counterpart of transductive_clip_tpu/methods/registry.py;
-reference: src/eval_zero_shot.py:113-138).
+"""Method registries (counterpart of transductive_clip_tpu/methods/registry.py;
+reference: src/eval_zero_shot.py:113-138 and src/eval_few_shot.py:189-211).
 
-Only the two Dirichlet zero-shot methods are ported. Asking for another
-method of the JAX package raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+Ported: the two Dirichlet zero-shot methods, and the few-shot EM-Dirichlet
+(soft and hard), alpha-TIM and TIM-GD. Asking for another method of the JAX
+package raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
 
 from .base import unported
+from .few_shot import ALPHA_TIM, TIM_GD
+from .few_shot import EM_DIRICHLET as FS_EM_DIRICHLET
+from .few_shot import HARD_EM_DIRICHLET as FS_HARD_EM_DIRICHLET
 from .zero_shot import EM_DIRICHLET, HARD_EM_DIRICHLET
 
 ZERO_SHOT_METHODS = {
     "EM_DIRICHLET": EM_DIRICHLET,
     "HARD_EM_DIRICHLET": HARD_EM_DIRICHLET,
+}
+
+FEW_SHOT_METHODS = {
+    "EM_DIRICHLET": FS_EM_DIRICHLET,
+    "HARD_EM_DIRICHLET": FS_HARD_EM_DIRICHLET,
+    "ALPHA_TIM": ALPHA_TIM,
+    "TIM-GD": TIM_GD,
 }
 
 # methods of the JAX package still to port -> the ROADMAP.md item
@@ -22,18 +33,27 @@ _UNPORTED_ZERO_SHOT = {
     for name in ("KL_KMEANS", "EM_GAUSSIAN", "EM_GAUSSIAN_COV", "SOFT_KMEANS",
                  "HARD_KMEANS", "CLIP")
 }
+_UNPORTED_FEW_SHOT = {
+    name: "'remaining few-shot methods'"
+    for name in ("PADDLE", "BDCSPN", "LAPLACIAN_SHOT")
+}
+
+
+def _get(kind, methods, unported_names, name, **kwargs):
+    if name in unported_names:
+        raise unported(f"{kind} method {name}", unported_names[name])
+    if name not in methods:
+        raise ValueError(
+            f"Unknown {kind} method {name!r}; choose from {sorted(methods)}"
+        )
+    return methods[name](**kwargs)
 
 
 def get_zero_shot_method(name, model=None, device=None, log_file=None, args=None):
-    if name in _UNPORTED_ZERO_SHOT:
-        raise unported(f"zero-shot method {name}", _UNPORTED_ZERO_SHOT[name])
-    if name not in ZERO_SHOT_METHODS:
-        raise ValueError(
-            f"Unknown zero-shot method {name!r}; choose from "
-            f"{sorted(ZERO_SHOT_METHODS)}"
-        )
-    return ZERO_SHOT_METHODS[name](model=model, device=device, log_file=log_file, args=args)
+    return _get("zero-shot", ZERO_SHOT_METHODS, _UNPORTED_ZERO_SHOT, name,
+                model=model, device=device, log_file=log_file, args=args)
 
 
 def get_few_shot_method(name, model=None, device=None, log_file=None, args=None):
-    raise unported(f"few-shot method {name}", "'few-shot with K3'")
+    return _get("few-shot", FEW_SHOT_METHODS, _UNPORTED_FEW_SHOT, name,
+                model=model, device=device, log_file=log_file, args=args)

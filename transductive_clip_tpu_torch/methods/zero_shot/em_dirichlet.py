@@ -55,7 +55,12 @@ from ...ops.dirichlet import (
     update_logits_cache_rows,
     weighted_log_means,
 )
-from ..base import PendingCompactionCheck, TransductiveMethod, compact_select_impl
+from ..base import (
+    PendingCompactionCheck,
+    TransductiveMethod,
+    compact_select_impl,
+    narrow_phase_widths,
+)
 
 # margin on top of n_query for the compacted cluster count
 _COMPACT_MARGIN = 16
@@ -367,22 +372,11 @@ class EM_DIRICHLET(TransductiveMethod):
         self.select = compact_select_impl(args)
 
     def _timing_iter_widths(self, n_used, n_full, n_task):
-        """Per-iteration cost model for the synthesised reference-semantics
-        timing: with task compaction the first ``n_full`` iterations ran at
-        the full batch width (the chunk width under ``task_chunk``) and the
-        rest at the narrow ``compact_tasks`` width. Uniform (None) whenever
-        no narrow phase ran."""
-        n = max(int(round(float(n_used))), 1)
-        if n_full is None or n_full >= n:
-            return None
-        chunk = int(self.args.get("task_chunk", 0) or 0)
-        full_w = int(n_task)
-        if 0 < chunk < n_task and n_task % chunk == 0:
-            full_w = chunk
-        narrow = min(max(int(self.compact_tasks), 1), full_w)
-        w = np.full(n, float(narrow))
-        w[:max(int(n_full), 0)] = float(full_w)
-        return w
+        """Task compaction's cost model: the first ``n_full`` iterations at
+        the full batch width, the rest at the ``compact_tasks`` width."""
+        return narrow_phase_widths(
+            n_used, n_full, n_task, int(self.args.get("task_chunk", 0) or 0),
+            self.compact_tasks)
 
     def _check_compaction(self, pop_max, n_query, n_class):
         n_compact, engaged = compaction_geometry(n_query, n_class)

@@ -8,6 +8,10 @@ import torch
 # Matches the epsilon used throughout the reference methods
 # (reference: src/methods/zero_shot/em_dirichlet.py:20).
 EPS = 1e-15
+# the TIM loss epsilon (reference: src/methods/few_shot/tim.py log/power
+# guards); shared by the autodiff loss, the closed-form gradient and the K3
+# kernel, whose equivalence depends on using one value
+TIM_EPS = 1e-12
 
 
 def resolve_device(device=None, cfg=None) -> torch.device:
