@@ -36,7 +36,31 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    phase 2; a torch.profiler breakdown of three steady alpha-TIM Adam steps
    with K3;
 6. torch.profiler breakdowns of one steady batch of zero-shot soft
-   EM-Dirichlet with ``pallas`` and with ``auto``.
+   EM-Dirichlet with ``pallas`` and with ``auto``;
+7. K4a and K4b against their plain version (the TPU kernels' order of
+   operations in torch ops) at the text towers' shapes ([1000, 77, 3 x 512]
+   bf16 with the causal mask, [1000, 77, 3 x 768] fp32), at
+   ViT-L/14@336px's [64, 577, 3 x 1024] fp32 and at ragged shapes with and
+   without the mask; K5 against its plain version at the four RN50
+   identity shapes at batch 512 in bf16 and one fp32 case; max difference
+   over the output's magnitude under K4_LIMIT / K5_LIMIT; kernel, plain and
+   (for K4) scaled_dot_product_attention times beside the bound;
+8. CLIP extraction with RN50 (bf16, ``fused_resnet=True``: K5 on the 12
+   identity blocks of every batch, K4a in the text tower) at full width on
+   random weights written as an OpenAI checkpoint, over a EuroSAT-shaped
+   test split (the CoOp split's 8100 images and 10 classes through the
+   port's ``build_dataset``; uint8 224 x 224 pixels made on the card from
+   the seed: the script decodes no image and needs no PIL) in batches of 512,
+   to the T = 30 softmax cache; the zero-shot evaluator over that cache
+   through the port's CLI; one batch's features held against the plain
+   route (``fused_resnet`` off, attention 'xla'); a torch.profiler
+   breakdown of one steady batch;
+9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
+   text tower) over every 32nd image of that split (254 images, cut from
+   8100), batches of 64, its features held against the 'xla' route on one
+   batch.
+
+With random weights an accuracy only has to be finite and in [0, 1].
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -89,6 +113,39 @@ MIN_ACCURACY = 0.95
 # is ~60x that, well under what a wrong gradient would move)
 MIN_AGREEMENT = 0.999
 MAX_DELTA_U = 1e-5
+# K4a / K4b and K5 vs their plain versions: max |kernel - plain| over
+# max |plain|, by dtype. fp32 differs only in the order of the sums; in bf16
+# a p, h1, h2 or output value can land on the neighbouring bf16 value
+# (2^-8 relative) and carry into what follows. The first runs on an H100
+# 80GB HBM3 at 700 W read at most 2.1e-7 (K4, fp32), 8.4e-4 (K4, bf16),
+# 8.1e-7 (K5, fp32) and 6.9e-3 (K5, bf16: values of ~200 move by one bf16
+# ulp, 1.0)
+K4_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
+K5_LIMIT = {"float32": 1e-5, "bfloat16": 2e-2}
+# one batch's L2-normalized features, kernel route vs plain route: max
+# |difference| over max |feature|. RN50 bf16: the plain graph rounds the
+# conv outputs in cuDNN's bf16 order and the text attention's scores in
+# bf16, so the roundings drift apart (the first H100 80GB HBM3 runs read
+# 5.5e-3 for the images, 1.2e-2 for the text); ViT-L/14@336px fp32: only
+# the order of the sums differs
+FEATURE_LIMIT = {"RN50": 5e-2, "ViT-L/14@336px": 1e-4}
+# the extraction slice: EuroSAT as the CoOp split has it (8100 test images,
+# 10 classes), batches of extract_batch_size 512; ViT-L/14@336px on every
+# 32nd test image in batches of 64
+EUROSAT_CLASSES = (
+    "Annual Crop Land", "Forest", "Herbaceous Vegetation Land",
+    "Highway or Road", "Industrial Buildings", "Pasture Land",
+    "Permanent Crop Land", "Residential Buildings", "River", "Sea or Lake")
+EUROSAT_TEST = 8100
+EXTRACT_BATCH = 512
+VIT_EVERY, VIT_BATCH = 32, 64
+# the synthetic BPE merges of tests/test_tokenizer.py (the real merges file
+# is not in the repository)
+BPE_MERGES = ("#version: 0.2", "c a", "ca t</w>", "d o", "do g</w>",
+              "a t</w>")
+# RN50's identity bottlenecks: ([H, W, C], Cm) and launches a batch
+RN50_IDENTITY = (((56, 56, 256), 64, 2), ((28, 28, 512), 128, 3),
+                 ((14, 14, 1024), 256, 5), ((7, 7, 2048), 512, 2))
 
 
 def log(msg):
@@ -624,12 +681,403 @@ def run_few_shot(root, counters, records, launches):
         torch.cuda.empty_cache()
 
 
+def _bound(ops, nbytes, peak):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _rel_err(name, got, ref, limit):
+    """(max |got - ref|, that over max |ref|); fails past ``limit`` or on a
+    non-finite output."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    if not rel < limit:
+        fail(f"{name}: relative difference {rel} >= {limit}")
+    return err, rel
+
+
+def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
+                    timing):
+    """K4a or K4b (``wrapper``) vs the plain version on a random qkv; with
+    ``timing``, kernel, plain and scaled_dot_product_attention times beside
+    the bound (4 b heads n^2 64 operations; qkv and out bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from transductive_clip_tpu_torch.ops import cuda_attention as ca
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * width, generator=g, device="cuda").to(dtype)
+    mask = (torch.full((n, n), float("-inf"), dtype=dtype,
+                       device="cuda").triu(1) if masked else None)
+    got = wrapper(qkv, heads, mask)
+    torch.cuda.synchronize()
+    ref = ca.fused_attention_reference(qkv, heads, mask)
+    name = f"{wrapper.__name__} [{b}, {n}, 3 x {width}] {str(dtype)[6:]}" + (
+        " causal" if masked else "")
+    err, rel = _rel_err(name, got, ref, K4_LIMIT[str(dtype)[6:]])
+    log(f"{name}: rel_diff {rel:.3e} max_abs_err {err:.3e}")
+    out = {"max_abs_err": err}
+    if timing:
+        q, k, v = (t.permute(0, 2, 1, 3) for t in
+                   qkv.view(b, n, 3, heads, width // heads).unbind(2))
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=masked)
+
+        lib_out = library().permute(0, 2, 1, 3).reshape(b, n, width)
+        lib_rel = ((lib_out.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+        item = qkv.element_size()
+        ops = 4 * b * heads * n * n * (width // heads)
+        nbytes = qkv.numel() * item + b * n * width * item
+        peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_BF16_S
+        out.update(ms=time_ms(lambda: wrapper(qkv, heads, mask)),
+                   plain_ms=time_ms(lambda: ca.fused_attention_reference(
+                       qkv, heads, mask)),
+                   library_ms=time_ms(library), **_bound(ops, nbytes, peak))
+        log(f"{name}: ms {out['ms']:.4f} plain_ms {out['plain_ms']:.4f} "
+            f"library_ms {out['library_ms']:.4f} (sdpa rel_diff "
+            f"{lib_rel:.3e}) bound_ms {out['bound_ms']:.4f} "
+            f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
+    del qkv, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_bottleneck(b, h, w, c, c_mid, dtype, seed, timing):
+    """K5 vs its plain version on random inputs in the kernel layout; with
+    ``timing``, kernel and plain (cuDNN convolutions) times beside the
+    bound (the three convolutions' operations; x, out and weight bytes)."""
+    import torch
+
+    from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*shape, scale=0.1):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    args = (t(b, h, w, c, scale=1.0).to(dtype), t(c, c_mid).to(dtype),
+            t(c_mid, scale=0.01), t(3, 3, c_mid, c_mid).to(dtype),
+            t(c_mid, scale=0.01), t(c_mid, c).to(dtype),
+            t(c, scale=0.01).to(dtype))
+    got = cb.fused_identity_bottleneck(*args)
+    torch.cuda.synchronize()
+    ref = cb.fused_identity_bottleneck_reference(*args)
+    name = (f"fused_identity_bottleneck [{b}, {h}, {w}, {c}] / {c_mid} "
+            f"{str(dtype)[6:]}")
+    err, rel = _rel_err(name, got, ref, K5_LIMIT[str(dtype)[6:]])
+    log(f"{name}: rel_diff {rel:.3e} max_abs_err {err:.3e} strip_rows "
+        f"{cb.strip_rows(h, w, c, c_mid, dtype)}")
+    out = {"max_abs_err": err}
+    if timing:
+        ops = 2 * b * h * w * (2 * c * c_mid + 9 * c_mid * c_mid)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + (
+            got.numel() * got.element_size())
+        peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_BF16_S
+        out.update(ms=time_ms(lambda: cb.fused_identity_bottleneck(*args)),
+                   plain_ms=time_ms(
+                       lambda: cb.fused_identity_bottleneck_reference(*args)),
+                   **_bound(ops, nbytes, peak))
+        log(f"{name}: ms {out['ms']:.4f} plain_ms {out['plain_ms']:.4f} "
+            f"bound_ms {out['bound_ms']:.4f} ({out['bound_by']}: "
+            f"{ops:.4e} ops, {nbytes:.4e} bytes)")
+    del args, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_kernel_checks_clip(records):
+    """Phases k4_vs_plain and k5_vs_plain."""
+    import torch
+
+    from transductive_clip_tpu_torch.ops import cuda_attention as ca
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    with Phase("k4_vs_plain"):
+        rows = check_attention(ca.attention_rows, 1000, 77, 512, 8, bf16,
+                               True, 11, True)
+        rows["fp32_text"] = check_attention(ca.attention_rows, 1000, 77, 768,
+                                            12, fp32, True, 12, True)
+        blocked = check_attention(ca.attention_blocked, 64, 577, 1024, 16,
+                                  fp32, False, 13, True)
+        for wrapper, rec in ((ca.attention_rows, rows),
+                             (ca.attention_blocked, blocked)):
+            for n, dtype, masked in ((53, fp32, False), (53, bf16, True),
+                                     (197, bf16, False), (130, fp32, True)):
+                err = check_attention(wrapper, 8, n, 512, 8, dtype, masked,
+                                      n, False)["max_abs_err"]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        records["attention_rows"], records["attention_blocked"] = rows, blocked
+    with Phase("k5_vs_plain"):
+        # one record for a batch of 512 images: the sums over its 12
+        # launches (2, 3, 5 and 2 at the four stages' shapes)
+        rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "per_shape": []}
+        ops_bound = 0.0
+        for (h, w, c), c_mid, count in RN50_IDENTITY:
+            one = check_bottleneck(EXTRACT_BATCH, h, w, c, c_mid, bf16, h,
+                                   True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], one["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms"):
+                rec[key] += count * one[key]
+            if one["bound_by"] == "operations":
+                ops_bound += count * one["bound_ms"]
+            rec["per_shape"].append({"shape": [EXTRACT_BATCH, h, w, c, c_mid],
+                                     "launches_a_batch": count, **one})
+        rec["bound_by"] = ("operations" if ops_bound >= rec["bound_ms"] / 2
+                           else "bytes")
+        rec["fp32"] = check_bottleneck(64, 14, 14, 1024, 256, fp32, 3, True)
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 rec["fp32"]["max_abs_err"],
+                                 check_bottleneck(3, 9, 11, 72, 24, fp32, 4,
+                                                  False)["max_abs_err"])
+        log(f"fused_identity_bottleneck, a batch of {EXTRACT_BATCH} (12 "
+            f"launches): ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+            f"bound_ms {rec['bound_ms']:.4f}")
+        records["fused_identity_bottleneck"] = rec
+
+
+def write_eurosat(root):
+    """The CoOp EuroSAT split file (8100 test images, 810 a class; no train
+    or val rows) under root/eurosat; the images are never read. Returns the
+    dataset path."""
+    path = os.path.join(root, "eurosat")
+    os.makedirs(path, exist_ok=True)
+    per_class = EUROSAT_TEST // len(EUROSAT_CLASSES)
+    test = [[f"{name.replace(' ', '')}/{name.replace(' ', '')}_{i}.jpg",
+             label, name]
+            for label, name in enumerate(EUROSAT_CLASSES)
+            for i in range(per_class)]
+    with open(os.path.join(path, "split_zhou_EuroSAT.json"), "w") as f:
+        json.dump({"train": [], "val": [], "test": test}, f)
+    return path
+
+
+def write_bpe(root):
+    import gzip
+
+    path = os.path.join(root, "bpe_synthetic.txt.gz")
+    with gzip.open(path, "wt") as f:
+        f.write("\n".join(BPE_MERGES) + "\n")
+    return path
+
+
+def pixel_batches(labels, size, batch, seed):
+    """uint8 [b, size, size, 3] batches made on the card from ``seed``, with
+    their labels (numpy)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for start in range(0, len(labels), batch):
+        y = labels[start:start + batch]
+        yield torch.randint(0, 256, (len(y), size, size, 3), generator=g,
+                            dtype=torch.uint8, device="cuda"), y
+
+
+def set_routes(model, attn_impl, fuse):
+    """Switch a loaded model between the kernel route and the plain route on
+    the same weights: the attention modules' ``attn_impl``, and ``fuse`` on
+    the identity bottlenecks K5 takes (``model.fused_blocks``)."""
+    from transductive_clip_tpu_torch.models.clip.layers import (
+        MultiHeadAttention,
+    )
+
+    for m in model.module.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_impl = attn_impl
+    for block in model.fused_blocks:
+        block.fuse = fuse
+
+
+def compare_routes(label, model, images, prompts, counters):
+    """One batch's and the prompts' normalized features, kernel route vs
+    plain route, under FEATURE_LIMIT[label]; the kernel route must launch
+    kernels and the plain route none."""
+    import torch
+
+    def both():
+        before = sum(w.launches for w in counters.values())
+        img = model.encode_image_batch(images)
+        txt = model.encode_text_prompts(prompts)
+        launched = sum(w.launches for w in counters.values()) - before
+        return [t / t.norm(dim=-1, keepdim=True) for t in (img, txt)], launched
+
+    fused, n_fused = both()
+    set_routes(model, "xla", False)
+    plain, n_plain = both()
+    set_routes(model, "fused", True)
+    if n_fused == 0 or n_plain != 0:
+        fail(f"{label}: {n_fused} launches on the kernel route, {n_plain} on "
+             "the plain route")
+    for what, a, b in zip(("image", "text"), fused, plain):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"{label} {what} features, kernel route vs plain route: rel_diff "
+            f"{rel:.3e} (limit {FEATURE_LIMIT[label]:.0e})")
+        if not (torch.isfinite(a).all() and rel < FEATURE_LIMIT[label]):
+            fail(f"{label} {what} features: kernel vs plain route {rel}")
+
+
+def profile_encode(label, model, images):
+    """Device busy share and top kernels of one steady encode batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model.encode_image_batch(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.encode_image_batch(images)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(label, prof, wall_us, 0, top=8)
+
+
+def extract(label, model, args, dataset, items, size, batch, counters):
+    """The extraction main path with every kernel count set to 0 just
+    before: text features (get_text_features), then the factored
+    extract_to_caches over seeded pixel batches to the T = 30 softmax cache.
+    Returns (cache path, launches, seconds, first batch)."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch.eval.extraction import (
+        extract_to_caches,
+        get_text_features,
+    )
+    from transductive_clip_tpu_torch.features.cache import softmax_cache_path
+
+    labels = np.array([d.label for d in items], np.int64)
+    path = softmax_cache_path("eurosat", "test", args.backbone, 30,
+                              root=args.root)
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = get_text_features(args, model, dataset.classnames,
+                             dataset.template)
+    t_text = time.perf_counter() - t0
+    emb, got_labels = extract_to_caches(
+        model, pixel_batches(labels, size, batch, SEED), [(30, path)], text)
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    n_batches = -(-len(labels) // batch)
+    log(f"extraction {label}: {len(labels)} images in {n_batches} batches, "
+        f"{seconds:.3f} s ({1e3 * (seconds - t_text) / len(labels):.4f} ms "
+        f"per image; text features {1e3 * t_text:.1f} ms) launches "
+        f"{launches}")
+    if not (np.isfinite(emb).all() and np.array_equal(got_labels, labels)):
+        fail(f"extraction {label}: non-finite features or wrong labels")
+    first = next(pixel_batches(labels, size, batch, SEED))[0]
+    return path, launches, n_batches, first
+
+
+def run_extraction(root, counters, records, launches):
+    """Phases extraction_rn50 and extraction_vitl336_fp32."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch import cli
+    from transductive_clip_tpu_torch.core.config import CfgNode
+    from transductive_clip_tpu_torch.data import build_dataset
+    from transductive_clip_tpu_torch.features.cache import load_feature_cache
+    from transductive_clip_tpu_torch.models.clip import (
+        CLIP_CONFIGS,
+        init_random_state_dict,
+        load,
+    )
+
+    weights = os.path.join(root, "clip_weights")
+    os.makedirs(weights)
+    os.environ["CLIP_WEIGHTS_DIR"] = weights
+    os.environ["CLIP_BPE_PATH"] = write_bpe(root)
+    dataset_path = write_eurosat(root)
+    dataset = build_dataset("eurosat", dataset_path)
+    prompts = [dataset.template.format(c) for c in dataset.classnames]
+    with Phase("extraction_rn50"):
+        torch.save(init_random_state_dict(CLIP_CONFIGS["RN50"], SEED),
+                   os.path.join(weights, "RN50.pt"))
+        model, _ = load("RN50", fused_resnet=True)
+        model.fused_blocks = [b for b in model.module.visual.blocks()
+                              if b.fuse]
+        log(f"RN50: {model.compute_dtype} attention {model.attention_impl} "
+            f"fold_bn {model.fold_bn} fused blocks {len(model.fused_blocks)}")
+        args = CfgNode(dict(dataset="eurosat", backbone="RN50", root=root,
+                            dataset_path=dataset_path))
+        path, got, n_batches, first = extract(
+            "RN50", model, args, dataset, dataset.test, 224, EXTRACT_BATCH,
+            counters)
+        if (got["fused_identity_bottleneck"] != 12 * n_batches
+                or got["attention_rows"] != 12
+                or got["attention_blocked"] != 0):
+            fail(f"RN50 extraction launched {got}, not K5 12 a batch "
+                 f"({12 * n_batches}) and K4a 12 (one text batch)")
+        launches["fused_identity_bottleneck"] = got["fused_identity_bottleneck"]
+        launches["attention_rows"] = got["attention_rows"]
+        feats, _ = load_feature_cache(path)
+        if feats.shape != (EUROSAT_TEST, len(EUROSAT_CLASSES)) or not (
+                np.isfinite(feats).all()
+                and np.allclose(feats.sum(-1), 1.0, atol=1e-4)):
+            fail(f"RN50 softmax cache: shape {feats.shape} or not simplex "
+                 "rows")
+        compare_routes("RN50", model, first, prompts, counters)
+        profile_encode("RN50 encode, one batch of 512", model, first)
+        del model, first
+        torch.cuda.empty_cache()
+    with Phase("zero_shot_eval_rn50_cache"):
+        acc, sec_per_task = cli.main(
+            ["--config-root", os.path.join(HERE, "config"), "--opts",
+             "dataset", "eurosat", "method", "em_dirichlet", "shots", "0",
+             "backbone", "RN50", "root", root, "dataset_path", dataset_path,
+             "number_tasks", "200", "batch_size", "100", "save_results",
+             "False", "log_path", os.path.join(root, "logs")])
+        log(f"zero-shot em_dirichlet on the RN50 cache (random weights): "
+            f"accuracy {acc:.6f} ms_per_task {1e3 * sec_per_task:.4f}")
+        if not 0.0 <= acc <= 1.0:
+            fail(f"zero-shot accuracy {acc} outside [0, 1]")
+    with Phase("extraction_vitl336_fp32"):
+        name = "ViT-L/14@336px"
+        model, _ = load(name, allow_random=True, seed=SEED,
+                        compute_dtype=torch.float32)
+        model.fused_blocks = []
+        if model.attention_impl != "fused":
+            fail(f"{name} fp32 resolved attention to {model.attention_impl}")
+        args = CfgNode(dict(dataset="eurosat", backbone=name, root=root,
+                            dataset_path=dataset_path))
+        items = dataset.test[::VIT_EVERY]
+        path, got, n_batches, first = extract(
+            name, model, args, dataset, items, 336, VIT_BATCH, counters)
+        layers = CLIP_CONFIGS[name].vision.layers
+        if (got["attention_blocked"] != layers * n_batches
+                or got["attention_rows"] != 12):
+            fail(f"{name} extraction launched {got}, not K4b {layers} a "
+                 f"batch ({layers * n_batches}) and K4a 12")
+        launches["attention_blocked"] = got["attention_blocked"]
+        records["attention_rows"]["vit_path_launches"] = got["attention_rows"]
+        feats, _ = load_feature_cache(path)
+        if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
+                np.isfinite(feats).all()):
+            fail(f"{name} softmax cache: shape {feats.shape}")
+        compare_routes(name, model, first, prompts, counters)
+        del model, first
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     try:
+        from transductive_clip_tpu_torch.ops import cuda_attention as ca
+        from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
         from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
         from transductive_clip_tpu_torch.ops import cuda_tim as ct
         from transductive_clip_tpu_torch.ops import kernel_build
@@ -674,6 +1122,18 @@ def main():
                              ct.tim_support_grad_reference,
                              "transductive_clip_tpu/ops/pallas_tim.py:44",
                              "tim_support_grad.cu"),
+        "attention_rows": (ca.attention_rows, ca.fused_attention_reference,
+                           "transductive_clip_tpu/ops/pallas_attention.py:92",
+                           "attention.cu"),
+        "attention_blocked": (ca.attention_blocked,
+                              ca.fused_attention_reference,
+                              "transductive_clip_tpu/ops/pallas_attention.py:117",
+                              "attention.cu"),
+        "fused_identity_bottleneck": (
+            cb.fused_identity_bottleneck,
+            cb.fused_identity_bottleneck_reference,
+            "transductive_clip_tpu/ops/pallas_bottleneck.py:91",
+            "bottleneck.cu"),
     }
     records = {}
     with Phase("kernels_vs_plain"):
@@ -707,6 +1167,7 @@ def main():
         rec["max_abs_err"] = max(errs)
         rec["default"] = rec_bf16
         records["tim_support_grad"] = rec
+    run_kernel_checks_clip(records)
 
     counters = {name: k[0] for name, k in kernels.items()}
     launches = {}
@@ -741,6 +1202,7 @@ def main():
         with Phase("profile"):
             for solver in ("pallas", "auto"):
                 profile_batch(root, solver)
+        run_extraction(root, counters, records, launches)
 
     listing = []
     for name, (_, _, replaces, source) in kernels.items():
@@ -751,9 +1213,10 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
-            **({"few_shot_launches": rec["few_shot_launches"]}
-               if "few_shot_launches" in rec else {}),
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"),
+            **{key: rec[key] for key in ("few_shot_launches",
+                                         "vit_path_launches") if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,177 @@
+"""K4a / K4b, the fused CLIP attention: the port's plain version against the
+JAX Pallas kernels in interpret mode (as tests/test_pallas_attention.py
+runs them) on the same numpy inputs, the dispatch at every OpenAI tower's
+shape, and the attention module's two routes.
+
+Tolerances are tests/test_pallas_attention.py's: 1e-5 in fp32 (only the
+order of the fp32 sums differs) and 2e-2 in bf16 (a p or output value can
+land on the neighbouring bf16 value)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from transductive_clip_tpu.models.clip.config import CLIP_CONFIGS as JAX_CONFIGS
+from transductive_clip_tpu.models.clip.layers import (
+    MultiHeadAttention as JaxMHA,
+)
+from transductive_clip_tpu.ops.pallas_attention import (
+    _fused_attention_blocked,
+    fused_attention as jax_fused_attention,
+)
+from transductive_clip_tpu_torch.models.clip.config import CLIP_CONFIGS
+from transductive_clip_tpu_torch.models.clip.layers import MultiHeadAttention
+from transductive_clip_tpu_torch.models.clip.model import (
+    _attention_shapes,
+    _resolve_attention_impl,
+)
+from transductive_clip_tpu_torch.ops import cuda_attention as ca
+
+torch.set_num_threads(2)
+
+DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _qkv(rng, b, n, width, dtype):
+    x = rng.standard_normal((b, n, 3 * width)).astype(np.float32)
+    return jnp.asarray(x, DTYPES[dtype][0]), torch.as_tensor(x).to(
+        DTYPES[dtype][1])
+
+
+def _causal(n):
+    m = np.triu(np.full((n, n), -np.inf, np.float32), k=1)
+    return jnp.asarray(m)[None, None], torch.as_tensor(m)[None, None]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "causal"])
+@pytest.mark.parametrize("n", [33, 53])
+def test_plain_matches_rows_kernel_interpret(rng, dtype, masked, n):
+    """K4a's TPU kernel (whole sequence) at n = 33 and a ragged 53."""
+    width, heads = 64, 4
+    qj, qt = _qkv(rng, 2, n, width, dtype)
+    mj, mt = _causal(n) if masked else (None, None)
+    want = jax_fused_attention(qj, heads, mj, interpret=True)
+    launches = ca.attention_rows.launches
+    got = ca.fused_attention(qt, heads, mt)
+    assert ca.attention_rows.launches == launches     # plain version on CPU
+    assert got.dtype == qt.dtype and got.shape == (2, n, width)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "causal"])
+@pytest.mark.parametrize("n", [33, 53])
+def test_plain_matches_blocked_kernel_interpret(rng, dtype, masked, n):
+    """K4b's TPU kernel with q blocks of 16 rows (53 = 3 x 16 + 5 ragged)."""
+    width, heads = 64, 4
+    qj, qt = _qkv(rng, 2, n, width, dtype)
+    mj, mt = _causal(n) if masked else (None, None)
+    want = _fused_attention_blocked(qj, heads, mj, 16, interpret=True)
+    got = ca.attention_blocked(qt, heads, mt)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("name", sorted(CLIP_CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_every_tower_resolves_to_a_kernel(name, dtype):
+    """Every OpenAI tower at both dtypes goes to K4a or K4b, never to the
+    plain path: the counterpart of tests/test_pallas_attention.py's
+    no-silent-fallback test, on this card's own budget."""
+    cfg = CLIP_CONFIGS[name]
+    for n, width, heads in _attention_shapes(cfg):
+        assert ca.attention_route(n, width, heads, dtype) in ("rows",
+                                                              "blocked")
+    assert _resolve_attention_impl("auto", cfg, dtype, "cuda") == "fused"
+    assert _resolve_attention_impl("auto", cfg, dtype, "cpu") == "xla"
+
+
+def test_routes_at_the_slice_shapes():
+    assert ca.attention_route(77, 512, 8, torch.bfloat16) == "rows"     # text
+    assert ca.attention_route(77, 768, 12, torch.float32) == "rows"
+    assert ca.attention_route(50, 768, 12, torch.bfloat16) == "rows"    # B/32
+    assert ca.attention_route(197, 768, 12, torch.bfloat16) == "blocked"
+    assert ca.attention_route(577, 1024, 16, torch.float32) == "blocked"
+    assert ca.rows_smem_bytes(128) <= ca.K4A_SMEM_BUDGET
+    assert ca.rows_smem_bytes(129) > ca.K4A_SMEM_BUDGET
+    assert ca.blocked_smem_bytes(776) <= ca.SMEM_LIMIT
+    assert ca.blocked_smem_bytes(777) > ca.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,width,heads,dtype", [
+    (77, 512, 16, torch.float32),        # head_dim 32
+    (777, 1024, 16, torch.float32),      # over the blocked kernel's memory
+    (77, 512, 8, torch.float16),         # no fp16 kernel
+])
+def test_unsupported_shapes_raise(n, width, heads, dtype):
+    assert not ca.fused_attention_supported(n, width, heads, dtype)
+    with pytest.raises(ValueError, match="fused attention"):
+        ca.attention_route(n, width, heads, dtype)
+
+
+def test_wrapper_launches_or_raises_off_the_cpu():
+    """Only CPU tensors take the plain version: any other device goes to
+    the launch path, which refuses what is not CUDA."""
+    qkv = torch.zeros((1, 77, 3 * 512), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ca.fused_attention(qkv, 8)
+    with pytest.raises(ValueError, match="fused attention"):
+        ca.fused_attention(torch.zeros((1, 77, 3 * 96), device="meta"), 3)
+
+
+def _jax_mha_params(rng, width):
+    def t(*shape, scale=0.2):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {"params": {
+        "in_proj": {"kernel": t(width, 3 * width), "bias": t(3 * width)},
+        "out_proj": {"kernel": t(width, width), "bias": t(width)}}}
+
+
+def _port_mha(params, width, heads, impl):
+    mod = MultiHeadAttention(width, heads, impl)
+    p = params["params"]
+    with torch.no_grad():
+        mod.in_proj_weight.copy_(torch.as_tensor(p["in_proj"]["kernel"].T))
+        mod.in_proj_bias.copy_(torch.as_tensor(p["in_proj"]["bias"]))
+        mod.out_proj.weight.copy_(torch.as_tensor(p["out_proj"]["kernel"].T))
+        mod.out_proj.bias.copy_(torch.as_tensor(p["out_proj"]["bias"]))
+    return mod
+
+
+@pytest.mark.parametrize("impl", ["xla", "fused"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "causal"])
+def test_module_matches_jax(rng, impl, masked):
+    """The attention module, both routes, against the JAX module's 'xla'
+    and 'fused_interpret' routes on the same parameters (fp32)."""
+    b, n, width, heads = 2, 21, 40, 4
+    x = rng.standard_normal((b, n, width)).astype(np.float32)
+    params = _jax_mha_params(rng, width)
+    mj, mt = _causal(n) if masked else (None, None)
+    jax_impl = "xla" if impl == "xla" else "fused_interpret"
+    want = JaxMHA(width, heads, jax_impl).apply(params, jnp.asarray(x), mj)
+    with torch.no_grad():
+        got = _port_mha(params, width, heads, impl)(torch.as_tensor(x), mt)
+    _close(got, want, 1e-5)
+
+
+def test_unknown_impl_rejected():
+    with pytest.raises(ValueError, match="attn_impl"):
+        MultiHeadAttention(8, 2, "cuda")
+
+
+def test_config_copy_matches_jax():
+    assert {k: repr(v) for k, v in CLIP_CONFIGS.items()} == {
+        k: repr(v) for k, v in JAX_CONFIGS.items()}
+    assert jax.default_backend() == "cpu"

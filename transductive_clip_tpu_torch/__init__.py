@@ -7,10 +7,12 @@ the JAX package's module layout, so each module here has its counterpart at
 the same relative path there, and imports nothing from it.
 
 Ported so far: zero-shot EM-Dirichlet (soft and hard) and few-shot
-alpha-TIM, TIM-GD and EM-Dirichlet, from the CLI down to the TSV row, with
-the two Dirichlet row-solve kernels and the alpha-TIM support-gradient
-kernel written in CUDA C++ for sm_90a (``csrc/``). ROADMAP.md lists what is
-still to port.
+alpha-TIM, TIM-GD and EM-Dirichlet, from the CLI down to the TSV row, and
+CLIP feature extraction (the nine OpenAI towers, images to feature cache),
+with the two Dirichlet row-solve kernels, the alpha-TIM support-gradient
+kernel, the two attention kernels and the fused ResNet bottleneck written
+in CUDA C++ for sm_90a (``csrc/``). ROADMAP.md lists what is still to
+port.
 """
 
 __version__ = "0.1.0"

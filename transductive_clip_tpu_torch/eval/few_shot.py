@@ -82,15 +82,20 @@ class EvaluatorFewShot:
         return support, query
 
     def run_full_evaluation(self, model=None, preprocess=None):
+        """Extract the train and ``used_test_set`` features if a cache is
+        missing (``model``, ``preprocess``: ``models.clip.load``'s pair),
+        then evaluate over all tasks from the caches."""
         args = self.args
         support_path, query_path = self.cache_paths()
-        for path in (support_path, query_path):
-            if not os.path.exists(path):
-                raise unported(f"feature extraction (no cache at {path})",
-                               "'extraction with K4a, K4b and K5'")
+        if not (os.path.exists(support_path) and os.path.exists(query_path)):
+            from .extraction import ensure_features
+
+            ensure_features(args, model, preprocess,
+                            splits=("train", args.used_test_set))
         if not args.use_softmax_feature:
-            raise unported("visual-feature evaluation (CLIP text features)",
-                           "'extraction with K4a, K4b and K5'")
+            raise unported("visual-feature evaluation (the methods that "
+                           "read CLIP text features)",
+                           "'remaining few-shot methods'")
         support_features, support_labels = load_feature_cache(support_path)
         query_features, query_labels = load_feature_cache(query_path)
         mean_acc, mean_time = self.evaluate_tasks(

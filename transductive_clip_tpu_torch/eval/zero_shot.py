@@ -121,15 +121,20 @@ class EvaluatorZeroShot:
         )
 
     def run_full_evaluation(self, model=None, preprocess=None):
-        """Evaluate over all tasks from the cached features."""
+        """Extract the test split's features if their cache is missing
+        (``model``, ``preprocess``: ``models.clip.load``'s pair), then
+        evaluate over all tasks from the cache."""
         args = self.args
         path = self.query_cache_path()
         if not os.path.exists(path):
-            raise unported(f"feature extraction (no cache at {path})",
-                           "'extraction with K4a, K4b and K5'")
+            from .extraction import ensure_features
+
+            ensure_features(args, model, preprocess,
+                            splits=(args.used_test_set,))
         if not args.use_softmax_feature:
-            raise unported("visual-feature evaluation (CLIP text features)",
-                           "'extraction with K4a, K4b and K5'")
+            raise unported("visual-feature evaluation (the methods that "
+                           "read CLIP text features)",
+                           "'remaining zero-shot methods'")
         features, labels = load_feature_cache(path)
         mean_acc, mean_time = self.evaluate_tasks(features, labels)
         self.report_results(mean_acc, mean_time)

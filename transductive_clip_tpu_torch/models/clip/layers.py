@@ -1,0 +1,93 @@
+"""Transformer building blocks shared by the CLIP vision and text towers
+(counterpart of transductive_clip_tpu/models/clip/layers.py).
+
+Parameter names are OpenAI CLIP's state-dict keys (``attn.in_proj_weight``,
+``mlp.c_fc.weight``, ...), so a checkpoint loads with ``load_state_dict``.
+Activations are batch-first [b, n, width], as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.cuda_attention import fused_attention
+
+LN_EPS = 1e-5
+ATTN_IMPLS = ("xla", "fused")
+
+
+class QuickGELU(nn.Module):
+    def forward(self, x):
+        return x * torch.sigmoid(1.702 * x)
+
+
+class MultiHeadAttention(nn.Module):
+    """Fused-qkv multi-head attention in OpenAI CLIP's in_proj layout.
+
+    ``attn_impl`` selects the score computation:
+      * ``'xla'`` — plain torch ops in the order of the JAX package's einsum
+        path: ``q * scale`` before the dot in the compute dtype, ``+ mask``,
+        the softmax in fp32, then a cast back to the compute dtype;
+      * ``'fused'`` — ``ops/cuda_attention.fused_attention``: K4a or K4b on
+        the card, their plain version on the CPU.
+    Both share the in/out projections, so the parameters are the same."""
+
+    def __init__(self, width: int, heads: int, attn_impl: str = "xla"):
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one "
+                             f"of {ATTN_IMPLS}")
+        self.width, self.heads, self.attn_impl = width, heads, attn_impl
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x, mask=None):
+        b, n, _ = x.shape
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)   # [b, n, 3w]
+        if self.attn_impl == "fused":
+            return self.out_proj(fused_attention(qkv, self.heads, mask))
+        head_dim = self.width // self.heads
+        q, k, v = (t.permute(0, 2, 1, 3) for t in
+                   qkv.reshape(b, n, 3, self.heads, head_dim).unbind(2))
+        attn = torch.matmul(q * head_dim ** -0.5, k.transpose(-1, -2))
+        if mask is not None:
+            attn = attn + mask
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        out = torch.matmul(attn, v).permute(0, 2, 1, 3).reshape(b, n, self.width)
+        return self.out_proj(out)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, width: int, heads: int, attn_impl: str = "xla"):
+        super().__init__()
+        self.ln_1 = nn.LayerNorm(width, eps=LN_EPS)
+        self.attn = MultiHeadAttention(width, heads, attn_impl)
+        self.ln_2 = nn.LayerNorm(width, eps=LN_EPS)
+        self.mlp = nn.Sequential(OrderedDict([
+            ("c_fc", nn.Linear(width, 4 * width)),
+            ("gelu", QuickGELU()),
+            ("c_proj", nn.Linear(4 * width, width)),
+        ]))
+
+    def forward(self, x, mask=None):
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int,
+                 attn_impl: str = "xla"):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            [ResidualAttentionBlock(width, heads, attn_impl)
+             for _ in range(layers)])
+
+    def forward(self, x, mask=None):
+        for block in self.resblocks:
+            x = block(x, mask)
+        return x

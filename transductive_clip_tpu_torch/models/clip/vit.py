@@ -1,0 +1,44 @@
+"""CLIP Vision Transformer tower (ViT-B/16, ViT-B/32, ViT-L/14) —
+counterpart of transductive_clip_tpu/models/clip/vit.py, with OpenAI's
+state-dict names (``visual.conv1.weight``, ``visual.class_embedding``,
+...)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .config import CLIPVisionConfig
+from .layers import LN_EPS, Transformer
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, embed_dim: int,
+                 attn_impl: str = "xla"):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.conv1 = nn.Conv2d(3, w, cfg.patch_size, stride=cfg.patch_size,
+                               bias=False)
+        n_tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.class_embedding = nn.Parameter(torch.empty(w))
+        self.positional_embedding = nn.Parameter(torch.empty(n_tokens, w))
+        self.ln_pre = nn.LayerNorm(w, eps=LN_EPS)
+        self.transformer = Transformer(w, cfg.layers, cfg.heads, attn_impl)
+        self.ln_post = nn.LayerNorm(w, eps=LN_EPS)
+        self.proj = nn.Parameter(torch.empty(w, embed_dim))
+
+    def forward(self, images):
+        """images [b, 3, H, W] (CLIP-normalized) -> [b, embed_dim]: the patch
+        conv, the class token, the positional embedding, ln_pre, the
+        transformer, ln_post on the class token, then proj."""
+        x = self.conv1(images)                                  # [b, w, g, g]
+        b, w = x.shape[:2]
+        x = x.reshape(b, w, -1).permute(0, 2, 1)                # [b, g*g, w]
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, w)
+        x = torch.cat([cls, x], dim=1)
+        x = x + self.positional_embedding.to(x.dtype)
+        x = self.ln_pre(x)
+        x = self.transformer(x)
+        x = self.ln_post(x[:, 0, :])
+        return x @ self.proj.to(x.dtype)

@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # every kernel source of the port; chip_smoke.py builds them all together
-SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu")
+SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu", "attention.cu",
+           "bottleneck.cu")
 # no --use_fast_math: the parity of the kernels with their plain versions
 # rests on IEEE fp32 division, logf and expf; -Xptxas -v reports each
 # kernel's registers, shared memory and spills into ``build_log``
