@@ -40,11 +40,15 @@ Phases, each timed on a line of its own; any failure exits non-zero:
 7. K4a and K4b against their plain version (the TPU kernels' order of
    operations in torch ops) at the text towers' shapes ([1000, 77, 3 x 512]
    bf16 with the causal mask, [1000, 77, 3 x 768] fp32), at
-   ViT-L/14@336px's [64, 577, 3 x 1024] fp32 and at ragged shapes with and
-   without the mask; K5 against its plain version at the four RN50
-   identity shapes at batch 512 in bf16 and one fp32 case; max difference
-   over the output's magnitude under K4_LIMIT / K5_LIMIT; kernel, plain and
-   (for K4) scaled_dot_product_attention times beside the bound;
+   ViT-L/14@336px's [64, 577, 3 x 1024] in fp32 and bf16, at ViT-B/16's
+   [256, 197, 3 x 768] bf16, and untimed at ragged shapes, K4a's tile
+   edges (n = 80, 128) and n = 577 bf16, without a mask, with the causal
+   one and with a general one that kills whole key tiles for some rows; K5
+   against its plain version at the four RN50 identity shapes at batch 512
+   in bf16 and one fp32 case; max difference over the output's magnitude
+   under K4_LIMIT / K5_LIMIT; kernel, plain and (for K4)
+   scaled_dot_product_attention times beside the bound (K4: 20 calls queued
+   in each timed window, the time of a lone call beside);
 8. CLIP extraction with RN50 (bf16, ``fused_resnet=True``: K5 on the 12
    identity blocks of every batch, K4a in the text tower) at full width on
    random weights written as an OpenAI checkpoint, over a EuroSAT-shaped
@@ -53,12 +57,14 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    the seed: the script decodes no image and needs no PIL) in batches of 512,
    to the T = 30 softmax cache; the zero-shot evaluator over that cache
    through the port's CLI; one batch's features held against the plain
-   route (``fused_resnet`` off, attention 'xla'); a torch.profiler
-   breakdown of one steady batch;
+   route (``fused_resnet`` off, attention 'xla'), and with them the outputs
+   of the first and the last attention module of each transformer tower
+   (forward hooks), under K4_LIMIT; a torch.profiler breakdown of one
+   steady batch;
 9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
    text tower) over every 32nd image of that split (254 images, cut from
-   8100), batches of 64, its features held against the 'xla' route on one
-   batch.
+   8100), batches of 64, its features and its first and last attention
+   modules' outputs held against the 'xla' route on one batch.
 
 With random weights an accuracy only has to be finite and in [0, 1].
 
@@ -116,10 +122,12 @@ MAX_DELTA_U = 1e-5
 # K4a / K4b and K5 vs their plain versions: max |kernel - plain| over
 # max |plain|, by dtype. fp32 differs only in the order of the sums; in bf16
 # a p, h1, h2 or output value can land on the neighbouring bf16 value
-# (2^-8 relative) and carry into what follows. The first runs on an H100
-# 80GB HBM3 at 700 W read at most 2.1e-7 (K4, fp32), 8.4e-4 (K4, bf16),
-# 8.1e-7 (K5, fp32) and 6.9e-3 (K5, bf16: values of ~200 move by one bf16
-# ulp, 1.0)
+# (2^-8 relative) and carry into what follows. Runs on an H100 80GB HBM3
+# at 700 W read at most 1.3e-6 (K4, fp32: the online softmax divides once
+# at the end), 2.7e-3 (K4, bf16: the tensor cores sum a score in another
+# order, so a p, and then an output, can land on the neighbouring bf16
+# value), 8.1e-7 (K5, fp32) and 6.9e-3 (K5, bf16: values of ~200 move by
+# one bf16 ulp, 1.0)
 K4_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
 K5_LIMIT = {"float32": 1e-5, "bfloat16": 2e-2}
 # one batch's L2-normalized features, kernel route vs plain route: max
@@ -172,9 +180,12 @@ class Phase:
         return False
 
 
-def time_ms(fn, runs=5):
+def time_ms(fn, runs=5, inner=1):
     """Median milliseconds of ``fn`` on the card (CUDA events), after a
-    warm-up call."""
+    warm-up call. ``inner`` calls are queued between the two events and the
+    time divided by it: for a call of a fraction of a millisecond, whose
+    host-side launch work would otherwise leave the card idle inside the
+    window."""
     import torch
 
     fn()
@@ -183,10 +194,11 @@ def time_ms(fn, runs=5):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
 
 
@@ -703,23 +715,33 @@ def _rel_err(name, got, ref, limit):
 
 def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
                     timing):
-    """K4a or K4b (``wrapper``) vs the plain version on a random qkv; with
-    ``timing``, kernel, plain and scaled_dot_product_attention times beside
-    the bound (4 b heads n^2 64 operations; qkv and out bytes)."""
+    """K4a or K4b (``wrapper``) vs the plain version on a random qkv;
+    ``masked``: False, True (the causal mask) or 'general'. With ``timing``,
+    kernel, plain and scaled_dot_product_attention times beside the bound
+    (4 b heads n^2 64 operations; qkv and out bytes)."""
     import torch
     import torch.nn.functional as F
 
+    import numpy as np
+
     from transductive_clip_tpu_torch.ops import cuda_attention as ca
+    from transductive_clip_tpu_torch.utils.synthetic import (
+        make_general_attention_mask,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * width, generator=g, device="cuda").to(dtype)
-    mask = (torch.full((n, n), float("-inf"), dtype=dtype,
-                       device="cuda").triu(1) if masked else None)
+    if masked == "general":
+        mask = torch.as_tensor(make_general_attention_mask(
+            np.random.default_rng(seed), n), device="cuda")
+    else:
+        mask = (torch.full((n, n), float("-inf"), dtype=dtype,
+                           device="cuda").triu(1) if masked else None)
     got = wrapper(qkv, heads, mask)
     torch.cuda.synchronize()
     ref = ca.fused_attention_reference(qkv, heads, mask)
     name = f"{wrapper.__name__} [{b}, {n}, 3 x {width}] {str(dtype)[6:]}" + (
-        " causal" if masked else "")
+        {False: "", True: " causal"}.get(masked, f" {masked} mask"))
     err, rel = _rel_err(name, got, ref, K4_LIMIT[str(dtype)[6:]])
     log(f"{name}: rel_diff {rel:.3e} max_abs_err {err:.3e}")
     out = {"max_abs_err": err}
@@ -728,7 +750,8 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
                    qkv.view(b, n, 3, heads, width // heads).unbind(2))
 
         def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=masked)
+            return F.scaled_dot_product_attention(q, k, v,
+                                                  is_causal=bool(masked))
 
         lib_out = library().permute(0, 2, 1, 3).reshape(b, n, width)
         lib_rel = ((lib_out.float() - ref.float()).abs().max()
@@ -737,11 +760,15 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
         ops = 4 * b * heads * n * n * (width // heads)
         nbytes = qkv.numel() * item + b * n * width * item
         peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_BF16_S
-        out.update(ms=time_ms(lambda: wrapper(qkv, heads, mask)),
+        # 20 calls in a window: these run for a fraction of a millisecond
+        out.update(ms=time_ms(lambda: wrapper(qkv, heads, mask), inner=20),
+                   ms_single_call=time_ms(lambda: wrapper(qkv, heads, mask)),
                    plain_ms=time_ms(lambda: ca.fused_attention_reference(
-                       qkv, heads, mask)),
-                   library_ms=time_ms(library), **_bound(ops, nbytes, peak))
-        log(f"{name}: ms {out['ms']:.4f} plain_ms {out['plain_ms']:.4f} "
+                       qkv, heads, mask), inner=20),
+                   library_ms=time_ms(library, inner=20),
+                   **_bound(ops, nbytes, peak))
+        log(f"{name}: ms {out['ms']:.4f} (one call a window "
+            f"{out['ms_single_call']:.4f}) plain_ms {out['plain_ms']:.4f} "
             f"library_ms {out['library_ms']:.4f} (sdpa rel_diff "
             f"{lib_rel:.3e}) bound_ms {out['bound_ms']:.4f} "
             f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
@@ -807,13 +834,28 @@ def run_kernel_checks_clip(records):
                                             12, fp32, True, 12, True)
         blocked = check_attention(ca.attention_blocked, 64, 577, 1024, 16,
                                   fp32, False, 13, True)
+        # bf16 is the default clip_compute: the ViT towers' own shapes
+        blocked["bf16_vitl336"] = check_attention(
+            ca.attention_blocked, 64, 577, 1024, 16, bf16, False, 14, True)
+        blocked["bf16_vitb16"] = check_attention(
+            ca.attention_blocked, 256, 197, 768, 12, bf16, False, 15, True)
+        # untimed: ragged shapes, masks, tile edges; K4a takes n <= 128
+        cases = ((53, fp32, False), (53, bf16, True), (197, bf16, False),
+                 (130, fp32, True), (577, bf16, False), (77, fp32, "general"),
+                 (80, bf16, "general"), (128, fp32, True),
+                 (197, fp32, "general"), (197, bf16, "general"))
         for wrapper, rec in ((ca.attention_rows, rows),
                              (ca.attention_blocked, blocked)):
-            for n, dtype, masked in ((53, fp32, False), (53, bf16, True),
-                                     (197, bf16, False), (130, fp32, True)):
-                err = check_attention(wrapper, 8, n, 512, 8, dtype, masked,
+            for n, dtype, masked in cases:
+                if wrapper is ca.attention_rows and n > ca.ROWS_MAX_N:
+                    continue
+                err = check_attention(wrapper, 5, n, 320, 5, dtype, masked,
                                       n, False)["max_abs_err"]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        for rec, keys in ((rows, ("fp32_text",)),
+                          (blocked, ("bf16_vitl336", "bf16_vitb16"))):
+            rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                     + [rec[k]["max_abs_err"] for k in keys])
         records["attention_rows"], records["attention_blocked"] = rows, blocked
     with Phase("k5_vs_plain"):
         # one record for a batch of 512 images: the sums over its 12
@@ -896,22 +938,50 @@ def set_routes(model, attn_impl, fuse):
         block.fuse = fuse
 
 
+def attention_probes(model):
+    """name -> the first and the last MultiHeadAttention module of each
+    transformer tower of a loaded model."""
+    from transductive_clip_tpu_torch.models.clip.layers import Transformer
+
+    probes = {}
+    for name, m in model.module.named_modules():
+        if isinstance(m, Transformer):
+            last = len(m.resblocks) - 1
+            probes[f"{name}.resblocks.0.attn"] = m.resblocks[0].attn
+            probes[f"{name}.resblocks.{last}.attn"] = m.resblocks[last].attn
+    return probes
+
+
 def compare_routes(label, model, images, prompts, counters):
     """One batch's and the prompts' normalized features, kernel route vs
     plain route, under FEATURE_LIMIT[label]; the kernel route must launch
-    kernels and the plain route none."""
+    kernels and the plain route none. The features alone can hide the
+    attention kernels (with random weights an attention output is small
+    beside the residual stream), so the outputs of the first and the last
+    attention module of each transformer tower are compared between the
+    two routes as well, under K4_LIMIT for their dtype."""
     import torch
 
+    probes = attention_probes(model)
+
     def both():
+        seen = {}
+        hooks = [m.register_forward_hook(
+            lambda _m, _in, out, name=name: seen.__setitem__(
+                name, out.detach().clone()))
+            for name, m in probes.items()]
         before = sum(w.launches for w in counters.values())
         img = model.encode_image_batch(images)
         txt = model.encode_text_prompts(prompts)
         launched = sum(w.launches for w in counters.values()) - before
-        return [t / t.norm(dim=-1, keepdim=True) for t in (img, txt)], launched
+        for h in hooks:
+            h.remove()
+        return ([t / t.norm(dim=-1, keepdim=True) for t in (img, txt)],
+                launched, seen)
 
-    fused, n_fused = both()
+    fused, n_fused, seen_fused = both()
     set_routes(model, "xla", False)
-    plain, n_plain = both()
+    plain, n_plain, seen_plain = both()
     set_routes(model, "fused", True)
     if n_fused == 0 or n_plain != 0:
         fail(f"{label}: {n_fused} launches on the kernel route, {n_plain} on "
@@ -922,6 +992,16 @@ def compare_routes(label, model, images, prompts, counters):
             f"{rel:.3e} (limit {FEATURE_LIMIT[label]:.0e})")
         if not (torch.isfinite(a).all() and rel < FEATURE_LIMIT[label]):
             fail(f"{label} {what} features: kernel vs plain route {rel}")
+    if set(seen_fused) != set(probes) or set(seen_plain) != set(probes):
+        fail(f"{label}: an attention module of {sorted(probes)} did not run")
+    for name in probes:
+        a, b = seen_fused[name], seen_plain[name]
+        limit = K4_LIMIT[str(a.dtype)[6:]]
+        _, rel = _rel_err(f"{label} {name} output, kernel route vs plain "
+                          "route", a, b, limit)
+        log(f"{label} {name} output {list(a.shape)} {str(a.dtype)[6:]}, "
+            f"kernel route vs plain route: rel_diff {rel:.3e} (limit "
+            f"{limit:.0e})")
 
 
 def profile_encode(label, model, images):

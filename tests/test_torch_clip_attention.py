@@ -1,7 +1,8 @@
 """K4a / K4b, the fused CLIP attention: the port's plain version against the
 JAX Pallas kernels in interpret mode (as tests/test_pallas_attention.py
 runs them) on the same numpy inputs, the dispatch at every OpenAI tower's
-shape, and the attention module's two routes.
+shape, the attention module's two routes, and the kernels' tiled order of
+operations (a torch twin of it) against the plain version.
 
 Tolerances are tests/test_pallas_attention.py's: 1e-5 in fp32 (only the
 order of the fp32 sums differs) and 2e-2 in bf16 (a p or output value can
@@ -29,6 +30,9 @@ from transductive_clip_tpu_torch.models.clip.model import (
     _resolve_attention_impl,
 )
 from transductive_clip_tpu_torch.ops import cuda_attention as ca
+from transductive_clip_tpu_torch.utils.synthetic import (
+    make_general_attention_mask,
+)
 
 torch.set_num_threads(2)
 
@@ -103,15 +107,25 @@ def test_routes_at_the_slice_shapes():
     assert ca.attention_route(50, 768, 12, torch.bfloat16) == "rows"    # B/32
     assert ca.attention_route(197, 768, 12, torch.bfloat16) == "blocked"
     assert ca.attention_route(577, 1024, 16, torch.float32) == "blocked"
-    assert ca.rows_smem_bytes(128) <= ca.K4A_SMEM_BUDGET
-    assert ca.rows_smem_bytes(129) > ca.K4A_SMEM_BUDGET
-    assert ca.blocked_smem_bytes(776) <= ca.SMEM_LIMIT
-    assert ca.blocked_smem_bytes(777) > ca.SMEM_LIMIT
+    # K4a: q, k, v of a head at n rounded up to 16 rows, in the qkv dtype
+    # (plus the fp32 p strips); taken up to n = 128, within the card's limit
+    assert ca.rows_smem_bytes(77, torch.bfloat16) == 2 * 3 * 80 * 72 == 34560
+    assert ca.rows_smem_bytes(77, torch.float32) == 4 * 80 * (3 * 68 + 72)
+    for dtype in ca.KERNEL_DTYPES:
+        assert ca.rows_smem_bytes(128, dtype) <= ca.SMEM_LIMIT
+        assert ca.attention_route(128, 768, 12, dtype) == "rows"
+        assert ca.attention_route(129, 768, 12, dtype) == "blocked"
+        # K4b's shared memory does not depend on n (the cap at 776 is
+        # gone) and leaves room for two blocks an SM or more
+        assert ca.attention_route(777, 1024, 16, dtype) == "blocked"
+        assert 2 * (ca.blocked_smem_bytes(dtype) + 1024) <= 228 * 1024
+    assert ca.blocked_smem_bytes(torch.bfloat16) == 2 * (128 + 4 * 64) * 72
+    assert ca.blocked_smem_bytes(torch.float32) == 4 * (256 * 68 + 128 * 72)
 
 
 @pytest.mark.parametrize("n,width,heads,dtype", [
     (77, 512, 16, torch.float32),        # head_dim 32
-    (777, 1024, 16, torch.float32),      # over the blocked kernel's memory
+    (777, 2048, 16, torch.float32),      # head_dim 128
     (77, 512, 8, torch.float16),         # no fp16 kernel
 ])
 def test_unsupported_shapes_raise(n, width, heads, dtype):
@@ -128,6 +142,83 @@ def test_wrapper_launches_or_raises_off_the_cpu():
         ca.fused_attention(qkv, 8)
     with pytest.raises(ValueError, match="fused attention"):
         ca.fused_attention(torch.zeros((1, 77, 3 * 96), device="meta"), 3)
+
+
+def _mask(rng, kind, n):
+    if kind == "plain":
+        return None
+    if kind == "causal":
+        return _causal(n)[1]
+    m = make_general_attention_mask(rng, n)
+    assert np.isfinite(m).any(-1).all()            # no row is all -inf
+    assert n <= 64 or np.isneginf(m[0, :64]).all()    # a whole dead tile
+    return torch.as_tensor(m)
+
+
+@pytest.mark.parametrize("mask", ["plain", "causal", "general"])
+@pytest.mark.parametrize("n", [33, 53, 77, 130, 197, 577])
+def test_tiled_twin_matches_plain_fp32(rng, n, mask):
+    """The fp32 kernels' online softmax over key tiles of 64 (running max
+    and sum, rescaled accumulators, one division, the -inf guard) against
+    the plain version: only the order of fp32 operations differs."""
+    _, qkv = _qkv(rng, 2, n, 128, "fp32")
+    mt = _mask(rng, mask, n)
+    want = ca.fused_attention_reference(qkv, 2, mt)
+    got = ca.fused_attention_tiled_reference(qkv, 2, mt)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("mask", ["plain", "causal", "general"])
+@pytest.mark.parametrize("n", [33, 53, 77, 130, 197, 577])
+def test_tiled_twin_matches_plain_bf16(rng, n, mask):
+    """The bf16 kernels' two passes over the key tiles against the plain
+    version, within one bf16 ulp of the output's magnitude. Not bit-equal:
+    the tiled sum of exp runs in another order than the plain row sum, so
+    it can differ in its last fp32 bit, and a p = e / sum that lies within
+    that of a bf16 rounding boundary lands on the neighbouring bf16 value
+    (the order normalise, round, multiply is the same in both)."""
+    _, qkv = _qkv(rng, 2, n, 128, "bf16")
+    mt = _mask(rng, mask, n)
+    want = ca.fused_attention_reference(qkv, 2, mt).float()
+    got = ca.fused_attention_tiled_reference(qkv, 2, mt).float()
+    assert torch.isfinite(got).all()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert (got - want).abs().max() <= ulp
+
+
+def test_tiled_twin_guards_a_leading_masked_tile():
+    """A row whose first key tile is all -inf has a running max of -inf
+    when the second tile comes: the twin (and the kernels) subtract 0
+    there, and the row comes out as the plain version's."""
+    rng = np.random.default_rng(5)
+    _, qkv = _qkv(rng, 1, 70, 64, "fp32")
+    m = torch.zeros((70, 70))
+    m[:, :64] = float("-inf")
+    want = ca.fused_attention_reference(qkv, 1, m)
+    got = ca.fused_attention_tiled_reference(qkv, 1, m)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_rows_kernel_refuses_long_sequences():
+    """K4a keeps a warp's score rows in registers: n over 128 raises off
+    the CPU, and the dispatch sends it to K4b."""
+    qkv = torch.zeros((1, 130, 3 * 128), device="meta")
+    with pytest.raises(ValueError, match="attention_blocked"):
+        ca.attention_rows(qkv, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ca.attention_blocked(qkv, 2)
+
+
+def test_variant_substitutions_still_apply():
+    """ops/attention_variants.py times edited copies of the kernel source:
+    each of its substitutions must still find its text there."""
+    from transductive_clip_tpu_torch.ops import attention_variants as av
+
+    sources = av.variant_sources()
+    assert set(sources) == {"source", *av.VARIANTS}
+    assert all(sources[name] != sources["source"] for name in av.VARIANTS)
 
 
 def _jax_mha_params(rng, width):

@@ -15,6 +15,9 @@ import torch
 from transductive_clip_tpu_torch.ops import cuda_attention as ca
 from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
 from transductive_clip_tpu_torch.ops.common import resolve_device
+from transductive_clip_tpu_torch.utils.synthetic import (
+    make_general_attention_mask,
+)
 
 torch.set_num_threads(2)
 
@@ -39,25 +42,46 @@ def _causal(n, dtype, device):
                       device=device).triu(1)
 
 
+def _mask(kind, n, dtype, device):
+    if kind == "plain":
+        return None
+    if kind == "causal":
+        return _causal(n, dtype, device)
+    return torch.as_tensor(make_general_attention_mask(
+        np.random.default_rng(n), n), device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("kernel", ["rows", "blocked"])
 @pytest.mark.parametrize("b,n,heads,masked", [
     (2, 53, 4, False), (2, 53, 4, True), (3, 77, 8, True),
     (2, 130, 2, False), (1, 197, 12, False),
+    (2, 80, 2, "causal"), (2, 128, 2, "plain"),      # K4a's tile edges
+    (3, 5, 5, "plain"), (3, 77, 5, "general"), (3, 128, 5, "general"),
+    (3, 197, 5, "general"), (1, 577, 3, "plain"), (1, 577, 3, "general"),
 ])
 def test_attention_matches_plain(card, dtype, kernel, b, n, heads, masked):
     g = torch.Generator(device=card).manual_seed(n)
     qkv = torch.randn(b, n, 3 * 64 * heads, generator=g, device=card).to(
         dtype)
-    mask = _causal(n, dtype, card) if masked else None
+    kind = {False: "plain", True: "causal"}.get(masked, masked)
+    mask = _mask(kind, n, dtype, card)
     wrapper = ca.attention_rows if kernel == "rows" else ca.attention_blocked
     launches = wrapper.launches
+    if kernel == "rows" and n > ca.ROWS_MAX_N:
+        # K4a keeps a warp's score rows in registers: longer sequences
+        # are K4b's
+        with pytest.raises(ValueError, match="attention_blocked"):
+            wrapper(qkv, heads, mask)
+        assert wrapper.launches == launches
+        return
     got = wrapper(qkv, heads, mask)
     torch.cuda.synchronize()
     assert wrapper.launches == launches + 1
     want = ca.fused_attention_reference(qkv, heads, mask)
     assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
     assert _rel(got, want) <= LIMIT[dtype]
 
 
@@ -65,7 +89,7 @@ def test_attention_matches_plain(card, dtype, kernel, b, n, heads, masked):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,n,width,heads,route", [
     (64, 77, 512, 8, "rows"), (32, 77, 768, 12, "rows"),
-    (8, 577, 1024, 16, "blocked"),
+    (8, 577, 1024, 16, "blocked"), (16, 197, 768, 12, "blocked"),
 ])
 def test_attention_at_tower_shapes(card, dtype, b, n, width, heads, route):
     g = torch.Generator(device=card).manual_seed(b)

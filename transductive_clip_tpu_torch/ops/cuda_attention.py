@@ -4,25 +4,40 @@
 Two CUDA C++ kernels for sm_90a (``csrc/attention.cu``) replace the TPU's:
 
 * K4a ``attention_rows`` — ``_attn_kernel`` (``fused_attention``): one block
-  per (sequence, head) keeps the head's k and v in shared memory for the
-  whole sequence;
+  of ceil(n / 16) warps per (sequence, head) holds the head's q, k and v in
+  shared memory; n <= 128 (the text towers' 77, ViT-B/32's 50);
 * K4b ``attention_blocked`` — ``_attn_kernel_blocked``
-  (``_fused_attention_blocked``): one block per (sequence, head, 64 q rows)
-  streams k and v through one tile.
+  (``_fused_attention_blocked``): one block of 8 warps per (sequence, head,
+  128 q rows) streams k and v through tiles of 64 rows; any n.
 
 Both keep the TPU kernel's order of operations: the q.k dot in fp32 from the
 qkv dtype, ``* scale``, ``+ mask`` as fp32, the max, exp, sum and division in
 fp32, p rounded to the qkv dtype, p.v accumulated in fp32, the output
-rounded to the qkv dtype. :func:`attention_route` is the dispatch between
-them on this card, with its shared-memory budget; every OpenAI tower of
-``models/clip/config.CLIP_CONFIGS`` resolves to one of them at bf16 and at
-fp32, and a shape neither takes raises. The kernels need head_dim 64 (every
-OpenAI tower); the plain version takes any.
+rounded to the qkv dtype. A warp owns 16 q rows and no score row ever lies
+in shared or device memory. The text tower's bf16 shape is bound by bytes
+and ViT-L/14@336px's fp32 shape by FFMA operations, so:
+
+* bf16 runs both products on tensor cores (``mma.sync`` m16n8k16, fragments
+  by ``ldmatrix``) with the scores in registers. K4a holds a warp's whole
+  [16, n] score block there; K4b walks the key tiles twice (a running max
+  and sum first, then ``p = exp(s - m) / sum`` rounded and multiplied), so
+  that p is normalised before it is rounded, as on the TPU;
+* fp32 runs FFMA on a 4 x 8 register tile a thread with float4 operand
+  reads and an online softmax (running max and sum, rescaled accumulators,
+  one division at the end): p is not rounded in fp32, so only the order of
+  fp32 operations differs from the plain version.
+
+:func:`attention_route` is the dispatch between the two on this card; every
+OpenAI tower of ``models/clip/config.CLIP_CONFIGS`` resolves to one of them
+at bf16 and at fp32, and a shape neither takes raises. The kernels need
+head_dim 64 (every OpenAI tower); the plain version takes any.
 
 :func:`fused_attention` takes the plain torch version
 (:func:`fused_attention_reference`) for tensors on the CPU, and only then;
 for CUDA tensors it launches a kernel or raises. ``attention_rows.launches``
 and ``attention_blocked.launches`` count the launches.
+:func:`fused_attention_tiled_reference` repeats the kernels' tiled order of
+operations in torch ops for the CPU tests.
 """
 
 from __future__ import annotations
@@ -36,16 +51,16 @@ from . import kernel_build
 
 SOURCE = "attention.cu"
 HEAD_DIM = 64
-ROWS = 64          # q rows of a row group (csrc kRows)
-KEYS = 64          # rows of a streamed k / v tile (csrc kKeys)
-KV_PITCH = HEAD_DIM + 1
+WARP_ROWS = 16     # q rows of a warp (csrc kWarpRows)
+KEYS = 64          # rows of a k / v tile (csrc kKeys)
+BLOCK_ROWS = 128   # q rows of a K4b block (csrc kBlockRows)
+ROWS_MAX_N = 128   # K4a's longest sequence (csrc kRowsMaxN): in bf16 a
+#                    warp's [16, n] fp32 scores stay in registers
+PITCH_BF16 = 72    # bf16 row pitch of q, k, v in shared memory (csrc kPitchB)
+PITCH_FP32 = 68    # fp32 row pitch of q, k, v (csrc kPitchF)
+PITCH_P = 72       # fp32 row pitch of the p strips (csrc kPitchP)
 # shared memory a block can use on an H100 (232,448 bytes of the SM's 256 KB)
 SMEM_LIMIT = 232448
-# K4a keeps k and v of a head for the whole sequence: taken while two blocks
-# fit an SM (2 x (113 KB + 1 KB reserved) of its 228 KB), i.e. n <= 128 (the
-# text towers' 77, ViT-B/32's 50); longer sequences take K4b, whose 64-row
-# tiles fit up to n = 776
-K4A_SMEM_BUDGET = 113 * 1024
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -64,30 +79,31 @@ def _library():
     return lib
 
 
-def _score_pitch(n: int) -> int:
-    return -(-n // 4) * 4
+def rows_smem_bytes(n: int, dtype) -> int:
+    """K4a's shared memory: q, k, v of a head over n rounded up to 16 rows,
+    in the qkv dtype at the padded pitch; in fp32 also the p strips."""
+    rows = -(-n // WARP_ROWS) * WARP_ROWS
+    if dtype == torch.bfloat16:
+        return 2 * 3 * rows * PITCH_BF16
+    return 4 * rows * (3 * PITCH_FP32 + PITCH_P)
 
 
-def rows_smem_bytes(n: int) -> int:
-    """K4a's shared memory: q [64, 64], scores [64, sp], k and v [sp, 65]."""
-    sp = _score_pitch(n)
-    return 4 * (ROWS * HEAD_DIM + ROWS * sp + 2 * sp * KV_PITCH)
-
-
-def blocked_smem_bytes(n: int) -> int:
-    """K4b's shared memory: q [64, 64], scores [64, sp], a tile [64, 65]."""
-    sp = _score_pitch(n)
-    return 4 * (ROWS * HEAD_DIM + ROWS * sp + KEYS * KV_PITCH)
+def blocked_smem_bytes(dtype) -> int:
+    """K4b's shared memory, the same for every n: q of 128 rows and, in
+    bf16, two stages of a k and a v tile; in fp32 one k tile, one v tile and
+    the p strips."""
+    if dtype == torch.bfloat16:
+        return 2 * (BLOCK_ROWS + 4 * KEYS) * PITCH_BF16
+    return 4 * ((BLOCK_ROWS + 2 * KEYS) * PITCH_FP32 + BLOCK_ROWS * PITCH_P)
 
 
 def attention_route(n: int, width: int, heads: int, dtype) -> str:
     """'rows' (K4a) or 'blocked' (K4b) for a [b, n, 3 width] qkv with
     ``heads`` heads; raises ValueError for a shape neither kernel takes.
 
-    Both stage q, k, v and the scores in fp32 whatever the qkv dtype, so the
-    rule depends on n only: K4a while its shared memory fits
-    ``K4A_SMEM_BUDGET`` (two blocks an SM), else K4b while its own fits
-    ``SMEM_LIMIT``."""
+    K4a while n <= ``ROWS_MAX_N`` (its shared memory, which grows with n and
+    with the staging dtype, then fits the card), else K4b, whose shared
+    memory does not depend on n."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused attention: dtype {dtype} is neither float32 "
                          "nor bfloat16")
@@ -95,14 +111,11 @@ def attention_route(n: int, width: int, heads: int, dtype) -> str:
         raise ValueError(f"fused attention: width {width} / heads {heads} is "
                          f"not head_dim {HEAD_DIM}, the only one the kernels "
                          "take (use attention_impl='xla')")
-    if rows_smem_bytes(n) <= K4A_SMEM_BUDGET:
+    if n < 1:
+        raise ValueError(f"fused attention: n = {n}")
+    if n <= ROWS_MAX_N and rows_smem_bytes(n, dtype) <= SMEM_LIMIT:
         return "rows"
-    if blocked_smem_bytes(n) <= SMEM_LIMIT:
-        return "blocked"
-    raise ValueError(f"fused attention: n = {n} needs "
-                     f"{blocked_smem_bytes(n)} bytes of shared memory in the "
-                     f"blocked kernel, over {SMEM_LIMIT} (use "
-                     "attention_impl='xla')")
+    return "blocked"
 
 
 def fused_attention_supported(n: int, width: int, heads: int, dtype) -> bool:
@@ -147,10 +160,54 @@ def fused_attention_reference(qkv, heads: int, mask=None):
     return o.permute(0, 2, 1, 3).reshape(b, n, width)
 
 
-def _launch(entry, qkv, heads, mask, smem_bytes):
-    """Checks, allocates and launches; ``smem_bytes(n)``: the kernel's
-    shared memory (either kernel runs any n whose memory fits the card;
-    :func:`attention_route` picks the one for a tower)."""
+def _tile_scores(q, k, hd, mask, j0, j1):
+    s = torch.matmul(q, k[:, :, j0:j1].transpose(-1, -2)) * hd ** -0.5
+    return s if mask is None else s + mask[:, j0:j1]
+
+
+def _guard(m):
+    """The max to subtract: 0 while every score so far is -inf."""
+    return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+
+
+def fused_attention_tiled_reference(qkv, heads: int, mask=None):
+    """The kernels' order of operations in torch ops, the keys walked in
+    tiles of ``KEYS``; for the tests only. bf16: two passes, a running max
+    and sum of exp first, then ``p = exp(s - m) / sum`` with the final m and
+    sum, rounded to bf16 and multiplied by v. fp32: one pass with a running
+    max and sum, the accumulators rescaled when the max moves, one division
+    at the end. A running max that is still -inf subtracts as 0."""
+    b, n, width = _split(qkv, heads)
+    hd = width // heads
+    q, k, v = (t.permute(0, 2, 1, 3).float()
+               for t in qkv.reshape(b, n, 3, heads, hd).unbind(2))
+    mask = _mask_2d(mask, n, qkv.device)
+    m = torch.full((b, heads, n, 1), float("-inf"))
+    l = torch.zeros((b, heads, n, 1))
+    o = torch.zeros((b, heads, n, hd))
+    tiles = [(j0, min(j0 + KEYS, n)) for j0 in range(0, n, KEYS)]
+    online = qkv.dtype == torch.float32
+    for j0, j1 in tiles:
+        s = _tile_scores(q, k, hd, mask, j0, j1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - _guard(m_new))
+        e = torch.exp(s - _guard(m_new))
+        l = l * alpha + e.sum(-1, keepdim=True)
+        if online:
+            o = o * alpha + torch.matmul(e, v[:, :, j0:j1])
+        m = m_new
+    if online:
+        o = o / l
+    else:
+        for j0, j1 in tiles:
+            s = _tile_scores(q, k, hd, mask, j0, j1)
+            p = (torch.exp(s - _guard(m)) / l).to(qkv.dtype)
+            o = o + torch.matmul(p.float(), v[:, :, j0:j1])
+    return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, width)
+
+
+def _launch(entry, qkv, heads, mask):
+    """Checks, allocates and launches."""
     b, n, width = _split(qkv, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"{entry}: qkv is on {qkv.device}; the kernel takes "
@@ -158,14 +215,14 @@ def _launch(entry, qkv, heads, mask, smem_bytes):
     if not qkv.is_contiguous():
         raise ValueError(f"{entry}: qkv must be contiguous")
     attention_route(n, width, heads, qkv.dtype)     # dtype, head_dim, n
-    if smem_bytes(n) > SMEM_LIMIT:
-        raise ValueError(f"{entry}: n = {n} needs {smem_bytes(n)} bytes of "
-                         f"shared memory, over {SMEM_LIMIT}")
     if not 0 < b * heads < 2 ** 31:
         raise ValueError(f"{entry}: {b} x {heads} blocks")
     m = _mask_2d(mask, n, qkv.device)
     if m is not None and m.shape != (n, n):
         raise ValueError(f"{entry}: mask {tuple(mask.shape)} is not [n, n]")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{entry}: qkv must be aligned to 16 bytes (the "
+                         "kernels copy 16 bytes at a time)")
     out = torch.empty((b, n, width), dtype=qkv.dtype, device=qkv.device)
     lib = _library()
     with torch.cuda.device(qkv.device):
@@ -182,20 +239,26 @@ def _launch(entry, qkv, heads, mask, smem_bytes):
 
 
 def attention_rows(qkv, heads: int, mask=None):
-    """K4a on a [b, n, 3 width] qkv (the plain version for CPU tensors)."""
+    """K4a on a [b, n, 3 width] qkv with n <= ``ROWS_MAX_N`` (the plain
+    version for CPU tensors)."""
     if qkv.device.type == "cpu":
         return fused_attention_reference(qkv, heads, mask)
-    out = _launch("tclip_attention_rows", qkv, heads, mask, rows_smem_bytes)
+    if qkv.shape[1] > ROWS_MAX_N:
+        raise ValueError(f"tclip_attention_rows: n = {qkv.shape[1]} is over "
+                         f"{ROWS_MAX_N}, the longest sequence whose scores "
+                         "the kernel keeps in registers (use "
+                         "attention_blocked)")
+    out = _launch("tclip_attention_rows", qkv, heads, mask)
     attention_rows.launches += 1
     return out
 
 
 def attention_blocked(qkv, heads: int, mask=None):
-    """K4b on a [b, n, 3 width] qkv (the plain version for CPU tensors)."""
+    """K4b on a [b, n, 3 width] qkv of any n (the plain version for CPU
+    tensors)."""
     if qkv.device.type == "cpu":
         return fused_attention_reference(qkv, heads, mask)
-    out = _launch("tclip_attention_blocked", qkv, heads, mask,
-                  blocked_smem_bytes)
+    out = _launch("tclip_attention_blocked", qkv, heads, mask)
     attention_blocked.launches += 1
     return out
 

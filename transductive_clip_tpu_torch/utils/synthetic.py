@@ -54,3 +54,20 @@ def make_few_shot_tasks(rng, n_task, n_query, n_class, shots, k_eff=5,
         y_q[t] = rng.choice(classes, size=n_query)
     x_q = feats(y_q)
     return x_s, y_s, x_q, y_q
+
+
+def make_general_attention_mask(rng, n, tile=64):
+    """An additive [n, n] float32 attention mask that is not causal, for
+    the attention kernels' tests: finite values everywhere, -inf on random
+    entries, the whole first key tile -inf for every third row and the
+    whole last tile for the rows after them (n > ``tile``); one entry a row
+    stays finite so that no row is all -inf."""
+    m = rng.standard_normal((n, n)).astype(np.float32)
+    m[rng.random((n, n)) < 0.3] = -np.inf
+    keep = (np.arange(n) % max(n - tile, 1)) + (tile if n > tile else 0)
+    m[np.arange(n), np.minimum(keep, n - 1)] = 0.5
+    if n > tile:
+        m[0::3, :tile] = -np.inf
+        m[1::3, tile * ((n - 1) // tile):] = -np.inf
+        m[1::3, 3] = 0.25
+    return m
