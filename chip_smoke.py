@@ -15,11 +15,14 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    as the EM step builds them, max relative difference < 1e-3,
    stationarity residual < 5e-3 on live rows, frozen rows bit-equal;
 3. K3 against its plain version at the 4-shot protocol's shape
-   [100, 4000, 1000, 1000] in 'highest' and 'default' and at a ragged
-   [3, 13, 150, 97] with non-uniform labels: max difference over the
+   [100, 4000, 1000, 1000] in 'highest' and 'default', at a ragged
+   [3, 13, 150, 97] with non-uniform labels, and untimed at the edges of its
+   tiles (s = 127, 128, 129; K = 128 and 150; d = 97, 1000 and 1008; some
+   labels outside [0, K); Shannon and alpha): max difference over the
    output's magnitude < 1e-5 ('highest') and < 1e-2 ('default');
    kernel and plain times (CUDA events, median of 5 after a warm-up) beside
-   the least time the card could take;
+   the least time the card could take, and each of the kernel's four passes'
+   own time (torch.profiler);
 4. the zero-shot main path through the port's CLI at the ImageNet protocol
    (100 tasks x 75 queries x K = 1000) on a synthetic softmax cache: soft
    EM-Dirichlet with ``dirichlet_solver pallas`` (three batches), hard with
@@ -45,7 +48,9 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    edges (n = 80, 128) and n = 577 bf16, without a mask, with the causal
    one and with a general one that kills whole key tiles for some rows; K5
    against its plain version at the four RN50 identity shapes at batch 512
-   in bf16 and one fp32 case; max difference over the output's magnitude
+   in bf16, one fp32 case, and untimed at the edges of the bf16 kernel's
+   tiles (W not a multiple of 8, Cm = 24 and 72, an image smaller than a
+   strip, a last strip of one row); max difference over the output's magnitude
    under K4_LIMIT / K5_LIMIT; kernel, plain and (for K4)
    scaled_dot_product_attention times beside the bound (K4: 20 calls queued
    in each timed window, the time of a lone call beside);
@@ -59,8 +64,10 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    through the port's CLI; one batch's features held against the plain
    route (``fused_resnet`` off, attention 'xla'), and with them the outputs
    of the first and the last attention module of each transformer tower
-   (forward hooks), under K4_LIMIT; a torch.profiler breakdown of one
-   steady batch;
+   (forward hooks), under K4_LIMIT; one batch timed through the kernel
+   route and through the model's own plain route (``fused_resnet`` off:
+   cuDNN's bf16 convolutions); a torch.profiler breakdown of one steady
+   batch;
 9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
    text tower) over every 32nd image of that split (254 images, cut from
    8100), batches of 64, its features and its first and last attention
@@ -154,6 +161,17 @@ BPE_MERGES = ("#version: 0.2", "c a", "ca t</w>", "d o", "do g</w>",
 # RN50's identity bottlenecks: ([H, W, C], Cm) and launches a batch
 RN50_IDENTITY = (((56, 56, 256), 64, 2), ((28, 28, 512), 128, 3),
                  ((14, 14, 1024), 256, 5), ((7, 7, 2048), 512, 2))
+# K3 at the edges of its 128 x 128 tiles, [N, s, K, d]: support rows around
+# one tile, classes at one tile and past it, features whose rows do not
+# start on 16 bytes (97), that end in half a slice (1000) or on one (1008)
+K3_EDGES = ((2, 127, 128, 97), (2, 128, 150, 1000), (2, 129, 128, 1008),
+            (2, 129, 150, 97))
+# K5 at the edges of the bf16 kernel's tiles, [B, H, W, C, Cm]: W not a
+# multiple of 8 with Cm = 24, rows off 16 bytes, an image smaller than a
+# strip with Cm = 72, a last strip of one row (H = 5 in strips of 2) whose
+# conv1 walks two chunks of rows, Cm = 72 at W = 9
+K5_EDGES = ((3, 9, 11, 72, 24), (1, 5, 7, 30, 12), (3, 7, 7, 64, 72),
+            (1, 5, 100, 16, 72), (1, 12, 9, 48, 72))
 
 
 def log(msg):
@@ -293,11 +311,13 @@ def compare_solve(name, wrapper, plain, a0, y, got, timing, **kw):
     return out
 
 
-def k3_inputs(n, s, k, d, seed, uniform):
+def k3_inputs(n, s, k, d, seed, uniform, outside=False):
     """Support rows on the simplex peaked at their label (softmax features),
     labels — ``uniform``: s / k of each class, shuffled per task, as the
     sampler's support; else random and non-uniform — and weights at the
-    support class means plus noise, as the Adam steps see them."""
+    support class means plus noise, as the Adam steps see them. With
+    ``outside`` two labels of every task lie outside [0, K) (they match no
+    class)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -316,17 +336,20 @@ def k3_inputs(n, s, k, d, seed, uniform):
     sums = torch.einsum("tsk,tsd->tkd", onehot, x)
     w = sums / onehot.sum(1).clamp_min(1.0)[..., None]
     w = (w + 1e-3 * torch.randn(n, k, d, device="cuda", generator=g)).contiguous()
+    if outside:
+        y[:, 2], y[:, 5] = -1, k + 3
     return x, y, w
 
 
-def check_k3(shape, precision, kind, alpha, seed, uniform, timing):
+def check_k3(shape, precision, kind, alpha, seed, uniform, timing,
+             outside=False):
     """K3 vs its plain version on the card; returns the record fields."""
     import torch
 
     from transductive_clip_tpu_torch.ops import cuda_tim as ct
 
     n, s, k, d = shape
-    x, y, w = k3_inputs(n, s, k, d, seed, uniform)
+    x, y, w = k3_inputs(n, s, k, d, seed, uniform, outside)
     x_p, y_p = ct.prepare_support(x, y, precision)
     del x
     args = (x_p, y_p, w, 15.0, 1.0 / s, alpha, s, d)
@@ -364,8 +387,35 @@ def check_k3(shape, precision, kind, alpha, seed, uniform, timing):
         log(f"tim_support_grad {shape} {precision}: ms {out['ms']:.4f} "
             f"plain_ms {out['plain_ms']:.4f} bound_ms {out['bound_ms']:.4f} "
             f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
+        out["passes_ms"] = k3_passes(
+            lambda: ct.tim_support_grad(*args, **kw), shape, precision)
     torch.cuda.empty_cache()
     return out
+
+
+def k3_passes(call, shape, precision, calls=3):
+    """Each of K3's passes' own device time a call (torch.profiler over
+    ``calls`` calls; the mean over the calls it kept), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    passes = {}
+    for e in _device_events(prof):
+        if "tclip::" in e.key:
+            name = _pass_name(e.key)
+            passes[name] = passes.get(name, 0.0) + _dev_us(e) / 1e3 / e.count
+    if len(passes) != 4:
+        fail(f"tim_support_grad {precision}: the profiler saw the passes "
+             f"{sorted(passes)}, not four")
+    log(f"tim_support_grad {shape} {precision} passes: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in passes.items()))
+    return passes
 
 
 def write_imagenet_cache(root, split, per_class, seed):
@@ -448,6 +498,12 @@ def _device_events(prof):
             and e.key != "Activity Buffer Request"]
 
 
+def _pass_name(key):
+    """A port kernel's own name out of a profiler key like
+    ``void tclip::name<T>(args)``."""
+    return key.split("tclip::")[1].split("(")[0].split("<")[0]
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -523,7 +579,7 @@ def profile_tim_steps(method, task, n_steps=3):
     """Where steady alpha-TIM Adam steps with K3 spend their device time:
     ``n_steps`` steps (the gradient, then optax's Adam update) of a
     main-path batch under torch.profiler, after a warm-up step, without
-    TIM's one-time setup: K3's three passes, the query side's products
+    TIM's one-time setup: K3's four passes, the query side's products
     (cuBLAS gemm kernels) and the rest (softmax and query gradient,
     elementwise); the Adam update timed alone with CUDA events."""
     import torch
@@ -562,15 +618,21 @@ def profile_tim_steps(method, task, n_steps=3):
         wall_us = (time.perf_counter() - t0) * 1e6
     events, busy = _report_profile(f"alpha-TIM {n_steps} steps", prof,
                                    wall_us, 0, top=12)
-    k3 = sum(_dev_us(e) for e in events
-             if "support_" in e.key or "half_sq_norm" in e.key)
+    # K3's passes run once a step each: a pass's mean over the calls the
+    # profiler kept (it can drop one) stands for its time a step
+    k3_events = [e for e in events if "tclip::" in e.key]
+    k3 = n_steps * sum(_dev_us(e) / e.count for e in k3_events)
+    busy += k3 - sum(_dev_us(e) for e in k3_events)
     gemm = sum(_dev_us(e) for e in events
                if "gemm" in e.key.lower() or "cutlass" in e.key.lower())
     _, grads = grad_fn(w)
     adam_ms = time_ms(lambda: ttim._adam_step(w, grads, state, lr, opt_dtype))
     if busy > 0:
         log(f"profile alpha-TIM per step: K3 {k3 / 1e3 / n_steps:.3f} ms "
-            f"(share {k3 / busy:.4f}), gemm {gemm / 1e3 / n_steps:.3f} ms "
+            f"(share {k3 / busy:.4f}; " + ", ".join(
+                f"{_pass_name(e.key)} {_dev_us(e) / e.count / 1e3:.3f}"
+                for e in k3_events)
+            + f"), gemm {gemm / 1e3 / n_steps:.3f} ms "
             f"(share {gemm / busy:.4f}), other "
             f"{(busy - k3 - gemm) / 1e3 / n_steps:.3f} ms (share "
             f"{(busy - k3 - gemm) / busy:.4f}) of device busy; the Adam "
@@ -825,6 +887,7 @@ def run_kernel_checks_clip(records):
     import torch
 
     from transductive_clip_tpu_torch.ops import cuda_attention as ca
+    from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
 
     bf16, fp32 = torch.bfloat16, torch.float32
     with Phase("k4_vs_plain"):
@@ -876,10 +939,14 @@ def run_kernel_checks_clip(records):
         rec["bound_by"] = ("operations" if ops_bound >= rec["bound_ms"] / 2
                            else "bytes")
         rec["fp32"] = check_bottleneck(64, 14, 14, 1024, 256, fp32, 3, True)
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 rec["fp32"]["max_abs_err"],
-                                 check_bottleneck(3, 9, 11, 72, 24, fp32, 4,
-                                                  False)["max_abs_err"])
+        errs = [rec["max_abs_err"], rec["fp32"]["max_abs_err"]]
+        for seed, shape in enumerate(K5_EDGES, start=4):
+            for dtype in (bf16, fp32):
+                # two rows of [100, 72] fp32 are over the fp32 kernel's budget
+                if cb.fused_bottleneck_supported(*shape[1:], dtype):
+                    errs.append(check_bottleneck(*shape, dtype, seed,
+                                                 False)["max_abs_err"])
+        rec["max_abs_err"] = max(errs)
         log(f"fused_identity_bottleneck, a batch of {EXTRACT_BATCH} (12 "
             f"launches): ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
             f"bound_ms {rec['bound_ms']:.4f}")
@@ -1004,6 +1071,23 @@ def compare_routes(label, model, images, prompts, counters):
             f"{limit:.0e})")
 
 
+def time_routes(label, model, images):
+    """One batch through the image tower on the kernel route and on the
+    model's own plain route (``fused_resnet`` off: cuDNN's convolutions in
+    the compute dtype), one after the other on the same weights."""
+    kernel_ms = time_ms(lambda: model.encode_image_batch(images), runs=3)
+    set_routes(model, "fused", False)
+    try:
+        plain_ms = time_ms(lambda: model.encode_image_batch(images), runs=3)
+    finally:
+        set_routes(model, "fused", True)
+    n = len(images)
+    log(f"{label} image tower, one batch of {n} ({model.compute_dtype}): "
+        f"fused_resnet=True {kernel_ms:.4f} ms ({kernel_ms / n:.4f} ms per "
+        f"image), fused_resnet=False {plain_ms:.4f} ms ({plain_ms / n:.4f} "
+        "ms per image)")
+
+
 def profile_encode(label, model, images):
     """Device busy share and top kernels of one steady encode batch."""
     import torch
@@ -1108,6 +1192,7 @@ def run_extraction(root, counters, records, launches):
             fail(f"RN50 softmax cache: shape {feats.shape} or not simplex "
                  "rows")
         compare_routes("RN50", model, first, prompts, counters)
+        time_routes("RN50", model, first)
         profile_encode("RN50 encode, one batch of 512", model, first)
         del model, first
         torch.cuda.empty_cache()
@@ -1244,6 +1329,10 @@ def main():
             for kind, alpha in (("Shannon", 1.0), ("Alpha", 2.5)):
                 errs.append(check_k3((3, 13, 150, 97), precision, kind, alpha,
                                      6, False, False)["max_abs_err"])
+                for seed, shape in enumerate(K3_EDGES, start=7):
+                    errs.append(check_k3(shape, precision, kind, alpha, seed,
+                                         False, False,
+                                         outside=True)["max_abs_err"])
         rec["max_abs_err"] = max(errs)
         rec["default"] = rec_bf16
         records["tim_support_grad"] = rec

@@ -117,6 +117,10 @@ def _block(g, b, h, w, c, c_mid, dtype, device):
 @pytest.mark.parametrize("shape", [
     (2, 8, 8, 32, 8), (1, 14, 14, 64, 16), (2, 16, 8, 16, 4),
     (3, 9, 11, 72, 24),                            # nothing a multiple of 64
+    # the bf16 kernel's tile edges: rows off 16 bytes, an image in one
+    # strip, a last strip of one row, Cm = 72 at W = 9, two chunks of rows
+    (1, 5, 7, 30, 12), (3, 7, 7, 64, 72), (1, 5, 100, 16, 72),
+    (1, 12, 9, 48, 72), (2, 30, 30, 64, 16),
     (4, 56, 56, 256, 64), (4, 28, 28, 512, 128),   # the RN50 identity blocks
     (4, 14, 14, 1024, 256), (4, 7, 7, 2048, 512),
 ])
@@ -124,6 +128,13 @@ def test_bottleneck_matches_plain(card, dtype, shape):
     g = torch.Generator(device=card).manual_seed(sum(shape))
     args = _block(g, *shape, dtype, card)
     launches = cb.fused_identity_bottleneck.launches
+    if not cb.fused_bottleneck_supported(*shape[1:], dtype):
+        # [5, 100, 16] / 72 fp32: two rows are over the fp32 kernel's budget
+        assert dtype == torch.float32 and shape[2] == 100
+        with pytest.raises(ValueError, match="fused_bottleneck_supported"):
+            cb.fused_identity_bottleneck(*args)
+        assert cb.fused_identity_bottleneck.launches == launches
+        return
     got = cb.fused_identity_bottleneck(*args)
     torch.cuda.synchronize()
     assert cb.fused_identity_bottleneck.launches == launches + 1

@@ -93,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace tclip {
 
 typedef __nv_bfloat16 bf16;
@@ -109,20 +111,6 @@ constexpr int kPitchP = 72;      // fp32 row pitch of the p strip
 template <typename T> struct Pitch;
 template <> struct Pitch<bf16> { static constexpr int value = kPitchB; };
 template <> struct Pitch<float> { static constexpr int value = kPitchF; };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // rows [row0, row0 + rows) of the q (which = 0), k (1) or v (2) third of
 // head h into dst [rows][pitch], 16 bytes a copy; rows past n are zero
@@ -177,34 +165,6 @@ __device__ __forceinline__ float guard(float m) {
 }
 
 // ---------------------------------------------------------------- bf16
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
-      : "memory");
-}
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// two fp32 values rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // the A fragments of a warp's 16 q rows (qw: its first row), one per 16 of d
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[4][4],

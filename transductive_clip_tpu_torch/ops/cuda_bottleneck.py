@@ -12,15 +12,22 @@ BatchNorms folded into the biases. Operands in x's dtype, fp32 sums; h1, h2
 and the conv3 output are rounded to x's dtype, and ``+ b3`` and ``+ x`` are
 done in x's dtype (``pallas_bottleneck.py:104-119``).
 
+In bf16 the three convolutions run on the tensor cores, with conv2's and
+conv3's input read where it lies in shared memory; fp32 keeps FFMA (TF32
+stays off).
+
 The support gate :func:`fused_bottleneck_supported` is this card's own: a
-block owns a strip of output rows of one image, and the gate accepts a block
-when a strip of at least one row fits ``SMEM_BUDGET``. It accepts all 12
-RN50 identity blocks at bf16 and at fp32; blocks it rejects take the plain
-graph (``models/clip/resnet.py``).
+block owns a strip of output rows of one image (:func:`strip_rows`), and
+the gate accepts a block when a strip of at least one row fits the dtype's
+:func:`smem_budget`. It accepts all 12 RN50 identity blocks at bf16 and at
+fp32; blocks it rejects take the plain graph (``models/clip/resnet.py``).
 
 The wrapper takes its plain torch version for tensors on the CPU, and only
 then; for CUDA tensors it launches the kernel or raises.
 ``fused_identity_bottleneck.launches`` counts the launches.
+:func:`fused_identity_bottleneck_tiled_reference` repeats the bf16 kernel's
+own order of operations in torch ops (what a block owns, the halo rows, the
+padded pitch, the tap-major contraction slice by slice), for the CPU tests.
 """
 
 from __future__ import annotations
@@ -34,11 +41,20 @@ import torch.nn.functional as F
 from . import kernel_build
 
 SOURCE = "bottleneck.cu"
-# csrc tiles: the staged A slice [64][17] and weight slice [16][64], fp32
-_STAGE_BYTES = 4 * (64 * 17 + 16 * 64)
-# two blocks an SM: 2 x (113 KB + 1 KB reserved) of its 228 KB
-SMEM_BUDGET = 113 * 1024
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# csrc, fp32: the staged A slice [64][17] and weight slice [16][64]
+_STAGE_BYTES_F32 = 4 * (64 * 17 + 16 * 64)
+# csrc, bf16: a ring of STAGES slices DEPTH deep, each an A slice of up to
+# 256 rows (pitch DEPTH + PAD) and a weight slice of 64 columns (the wider
+# weight slices of shorter chunks take less); h1 and h2 rows of Cm rounded
+# up to CHAN_UNIT, plus PAD
+DEPTH, STAGES, CHAN_UNIT, PAD = 32, 3, 32, 8
+_RING_BYTES_BF16 = STAGES * 2 * (256 * (DEPTH + PAD) + DEPTH * (64 + PAD))
+# conv3's output tile passes through h1's place on its way out
+_STAGING_BYTES_BF16 = 2 * 256 * (64 + PAD)
+# a block's shared memory: fp32 two blocks an SM (2 x (113 KB + 1 KB
+# reserved) of its 228 KB), bf16 one block an SM
+_SMEM_BUDGET = {torch.float32: 113 * 1024, torch.bfloat16: 227 * 1024}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,25 +70,48 @@ def _library():
     return lib
 
 
+def smem_budget(dtype) -> int:
+    """The shared memory a block of the dtype's kernel may take."""
+    return _SMEM_BUDGET[dtype]
+
+
+def padded_channels(c_mid: int) -> int:
+    """Cm as the bf16 kernel lays it in h1 and h2: rounded up to CHAN_UNIT,
+    so that a slice of conv2's contraction lies inside one tap."""
+    return -(-c_mid // CHAN_UNIT) * CHAN_UNIT
+
+
 def smem_bytes(w: int, c_mid: int, rows: int, item: int) -> int:
-    """A block's shared memory for strips of ``rows`` output rows: the
-    staged slices, h1 [rows + 2, w + 2, Cm] and h2 [rows w, Cm] in x's
-    dtype."""
-    return _STAGE_BYTES + item * ((rows + 2) * (w + 2) * c_mid
-                                  + rows * w * c_mid)
+    """A block's shared memory for strips of ``rows`` output rows, by the
+    item size of x's dtype: the staged slices, h1 [rows + 2, w + 2, pitch]
+    and h2 [rows w, pitch]; pitch is Cm in fp32, padded Cm + PAD in bf16,
+    where h1 is also at least the tile conv3's output passes through."""
+    h1, h2 = (rows + 2) * (w + 2), rows * w
+    if item == 2:
+        pitch = 2 * (padded_channels(c_mid) + PAD)
+        return (_RING_BYTES_BF16 + max(pitch * h1, _STAGING_BYTES_BF16)
+                + pitch * h2)
+    return _STAGE_BYTES_F32 + 4 * c_mid * (h1 + h2)
 
 
 def strip_rows(h: int, w: int, c: int, c_mid: int, dtype) -> int:
-    """Output rows a block owns: the largest strip that fits SMEM_BUDGET, or
-    0 when not even one row does (or the dtype is not a kernel's)."""
+    """Output rows a block owns, or 0 when not even one row fits the
+    dtype's budget (or the dtype is not a kernel's). fp32: the largest
+    strip that fits. bf16: the largest strip that fits sets the number of
+    strips of an image, and the rows are then spread evenly over them (28
+    rows: 4 strips of 7, not 8 + 8 + 8 + 4), so that the blocks take about
+    the same time and fewer strips need a second chunk of rows."""
     if dtype not in KERNEL_DTYPES:
         return 0
     item = torch.empty((), dtype=dtype).element_size()
     best = 0
     for rows in range(1, h + 1):
-        if smem_bytes(w, c_mid, rows, item) <= SMEM_BUDGET:
+        if smem_bytes(w, c_mid, rows, item) <= smem_budget(dtype):
             best = rows
-    return best
+    if best == 0 or dtype == torch.float32:
+        return best
+    strips = -(-h // best)
+    return -(-h // strips)
 
 
 def fused_bottleneck_supported(h: int, w: int, c: int, c_mid: int,
@@ -121,8 +160,9 @@ def _check(x, w1, b1, w2, b2, w3, b3):
             raise TypeError(f"{name}: {what} must be {dtype} {list(shape)}, "
                             f"got {t.dtype} {list(t.shape)} (the kernel "
                             "layout is made once at load)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous (x NHWC)")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous (x NHWC) "
+                             "and start on 16 bytes")
     rows = strip_rows(h, w, c, c_mid, x.dtype)
     if rows == 0:
         raise ValueError(f"{name}: [{h}, {w}, {c}] / {c_mid} {x.dtype} does "
@@ -159,3 +199,54 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
 
 
 fused_identity_bottleneck.launches = 0
+
+
+def fused_identity_bottleneck_tiled_reference(x, w1, b1, w2, b2, w3, b3):
+    """K5 in the bf16 kernel's own order of operations, in torch ops: an
+    (image, strip of :func:`strip_rows` rows) at a time; conv1 over the
+    strip's rows and the halo rows inside the image into a zeroed h1
+    [rows + 2, W + 2, padded Cm + PAD]; conv2 as nine taps, each a shifted
+    view of h1, the contraction tap-major in slices of DEPTH channels;
+    conv3 over h2 in the same slices; the roundings and the adds of the
+    formula in x's dtype. Shapes and layout as
+    :func:`fused_identity_bottleneck`."""
+    dt = x.dtype
+    bsz, h, w, c = x.shape
+    c_mid = w1.shape[1]
+    rows = strip_rows(h, w, c, c_mid, dt)
+    if rows == 0:
+        raise ValueError(f"[{h}, {w}, {c}] / {c_mid} {dt} does not fit the "
+                         "kernel (fused_bottleneck_supported)")
+    cp = padded_channels(c_mid)
+    w1p = torch.zeros(c, cp)
+    w1p[:, :c_mid] = w1.float()
+    w2p = torch.zeros(9, cp, cp)
+    w2p[:, :c_mid, :c_mid] = w2.float().reshape(9, c_mid, c_mid)
+    w3p = torch.zeros(cp, c)
+    w3p[:c_mid] = w3.float()
+    b1p, b2p = torch.zeros(cp), torch.zeros(cp)
+    b1p[:c_mid], b2p[:c_mid] = b1.float(), b2.float()
+
+    def product(a, wp):
+        acc = torch.zeros(*a.shape[:-1], wp.shape[1])
+        for k0 in range(0, a.shape[-1], DEPTH):
+            acc += a[..., k0:k0 + DEPTH].float() @ wp[k0:k0 + DEPTH]
+        return acc
+
+    out = torch.empty_like(x)
+    for y0 in range(0, h, rows):
+        r = min(rows, h - y0)
+        y_lo, y_hi = max(y0 - 1, 0), min(y0 + r, h - 1)
+        h1 = torch.zeros(bsz, rows + 2, w + 2, cp + PAD, dtype=dt)
+        v = F.relu(product(x[:, y_lo:y_hi + 1], w1p) + b1p)
+        hr0 = y_lo - (y0 - 1)
+        h1[:, hr0:hr0 + y_hi - y_lo + 1, 1:w + 1, :cp] = v.to(dt)
+        acc = torch.zeros(bsz, r, w, cp)
+        for tap in range(9):
+            dh, dw = divmod(tap, 3)
+            acc += product(h1[:, dh:dh + r, dw:dw + w, :cp], w2p[tap])
+        h2 = torch.zeros(bsz, r, w, cp + PAD, dtype=dt)
+        h2[..., :cp] = F.relu(acc + b2p).to(dt)
+        o = product(h2[..., :cp], w3p).to(dt) + b3.to(dt)
+        out[:, y0:y0 + r] = F.relu(o + x[:, y0:y0 + r])
+    return out
