@@ -11,9 +11,15 @@ Phases, each timed on a line of its own; any failure exits non-zero:
 2. K1 and K2 against their plain torch versions on the card, at the main
    path's shapes [100, 91, 1000] and [100, 32, 1000], a ragged
    [3, 13, 150] and a full-width [8, 1000, 1000] (K2's width on the
-   guard's exact first iteration; its last block is ragged): inputs built
-   as the EM step builds them, max relative difference < 1e-3,
-   stationarity residual < 5e-3 on live rows, frozen rows bit-equal;
+   guard's exact first iteration; its last block is ragged), and untimed at
+   the edges of the cluster design (dirichlet_fixtures.SOLVE_EDGES): inputs
+   built as the EM step builds them, max relative difference < 1e-3,
+   stationarity residual < 5e-3 on live rows, frozen rows bit-equal; the
+   kernels' times (10 calls queued a timed window) beside the operations
+   bound and the special-function unit's (SFU_PER_UPDATE), and K2 alone at
+   the few-shot full width [100, 1000, 1000]; special.cuh's fast paths
+   against IEEE fp32 on every float of their domains
+   (csrc/special_check.cu);
 3. K3 against its plain version at the 4-shot protocol's shape
    [100, 4000, 1000, 1000] in 'highest' and 'default', at a ragged
    [3, 13, 150, 97] with non-uniform labels, and untimed at the edges of its
@@ -39,7 +45,8 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    phase 2; a torch.profiler breakdown of three steady alpha-TIM Adam steps
    with K3;
 6. torch.profiler breakdowns of one steady batch of zero-shot soft
-   EM-Dirichlet with ``pallas`` and with ``auto``;
+   EM-Dirichlet with ``pallas`` (K1's device time and launches) and with
+   ``auto`` (its host syncs);
 7. K4a and K4b against their plain version (the TPU kernels' order of
    operations in torch ops) at the text towers' shapes ([1000, 77, 3 x 512]
    bf16 with the causal mask, [1000, 77, 3 x 768] fp32), at
@@ -109,6 +116,17 @@ PEAK_BF16_S = 989e12
 # 3 Newton steps of 46 plus ~10 (row sum, init, criterion); K2 is
 # digamma_pos 25 + lgamma_pos 27 + curvature, root and row sum 19
 OPS_PER_UPDATE = {"dirichlet_row_solve": 148, "mm_row_solve": 71}
+# special-function-unit operations (MUFU) per live element and update, as
+# cuobjdump -sass shows them: every reciprocal and division by a variable is
+# one MUFU.RCP, expf one MUFU.EX2, sqrtf one MUFU.RSQ; logf (a polynomial)
+# and a division by a constant (its reciprocal refined by FMAs) none. K1:
+# the initial guess (expf or a reciprocal) + 3 Newton steps of 5
+# reciprocals and a division; K2: digamma_lgamma_pos's 5 reciprocals, the
+# curvature's and the root's divisions, sqrtf
+SFU_PER_UPDATE = {"dirichlet_row_solve": 19, "mm_row_solve": 8}
+# 16 MUFU operations a clock on each of the 132 SMs at the 1.98 GHz boost
+# clock (the clock behind the data sheet's 67 TFLOP/s fp32)
+PEAK_SFU_S = 132 * 16 * 1.98e9
 # solver tolerance: each version sums a block's num/den in its own order, so
 # near tol a block can stop one check apart — 49 more MM updates in K2,
 # each moving alpha by up to ~3e-6 relative there. The runs on the H100 show
@@ -220,33 +238,16 @@ def time_ms(fn, runs=5, inner=1):
     return statistics.median(times)
 
 
-def solve_inputs(n_task, n_rows, k, seed, device="cuda"):
-    """alpha0 = 1 and y built as the EM step builds it: weighted log-means of
-    synthetic tasks (utils/synthetic.py) over each task's top-``n_rows``
-    clusters by mass. Even tasks take the dense raw features (every row
-    live, as iteration 1 compacted); odd tasks take hard assignments, whose
-    empty rows carry the ROW_FREEZE sentinel except one left at the
-    empty-cluster fill -10."""
-    import numpy as np
-    import torch
+def solve_inputs(n_task, n_rows, k, seed, hard_odd=True):
+    """alpha0 = 1 and y as the EM step builds them, on the card
+    (``dirichlet_fixtures.synthetic_solve_inputs``): even tasks dense, odd
+    tasks hard with ROW_FREEZE rows, or every task dense."""
+    from transductive_clip_tpu_torch.ops.dirichlet_fixtures import (
+        synthetic_solve_inputs,
+    )
 
-    from transductive_clip_tpu_torch.ops.common import EPS, get_one_hot, top_rows
-    from transductive_clip_tpu_torch.ops.cuda_dirichlet import ROW_FREEZE
-    from transductive_clip_tpu_torch.ops.dirichlet import weighted_log_means
-    from transductive_clip_tpu_torch.utils.synthetic import make_zero_shot_tasks
-
-    x, _ = make_zero_shot_tasks(np.random.default_rng(seed), n_task, N_QUERY, k)
-    x = torch.as_tensor(x, device=device)
-    lq = torch.log(x + EPS)
-    _, cols = top_rows(x.sum(1), n_rows)
-    u = torch.gather(x, 2, cols[:, None, :].expand(-1, N_QUERY, -1))
-    hard = get_one_hot(torch.argmax(u, dim=-1), n_rows)
-    odd = torch.arange(n_task, device=device)[:, None, None] % 2 == 1
-    y, nonzero = weighted_log_means(torch.where(odd, hard, u), lq, eps=EPS)
-    frozen = ~nonzero & odd
-    frozen[1::2, n_rows - 1] = False   # one empty row (past k_eff <= 10) stays live
-    y = torch.where(frozen, ROW_FREEZE, y).contiguous()
-    return torch.ones_like(y), y
+    return synthetic_solve_inputs(n_task, n_rows, k, seed, n_query=N_QUERY,
+                                  hard_odd=hard_odd)
 
 
 def check_kernel(name, wrapper, plain, a0, y, timing):
@@ -300,14 +301,17 @@ def compare_solve(name, wrapper, plain, a0, y, got, timing, **kw):
         nbytes = 3 * a0.numel() * 4
         t_ops, t_bytes = ops / PEAK_FP32_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
         out.update(
-            ms=time_ms(lambda: wrapper(a0, y)),
+            ms=time_ms(lambda: wrapper(a0, y), inner=10),
             plain_ms=time_ms(lambda: plain(a0, y)),
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
+            sfu_bound_ms=updates * SFU_PER_UPDATE[name] / PEAK_SFU_S * 1e3,
         )
         log(f"{name} {shape}: ms {out['ms']:.4f} plain_ms "
             f"{out['plain_ms']:.4f} bound_ms {out['bound_ms']:.4f} "
-            f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
+            f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes) "
+            f"sfu_bound_ms {out['sfu_bound_ms']:.4f} ({updates:.4e} live "
+            "element-updates)")
     return out
 
 
@@ -523,15 +527,13 @@ def _report_profile(label, prof, wall_us, syncs, top=10):
     return events, busy
 
 
-def profile_batch(root, solver):
-    """Where one steady-state batch of the zero-shot soft main path spends
-    its time: the method's run_task on a second sampled batch (the first
-    one hosts the compact_first guard and the warm-up) under torch.profiler;
-    prints the top kernels by device time and the device's busy share of the
-    wall clock."""
+def steady_batch(root, solver):
+    """A zero-shot soft EM-Dirichlet method with ``solver`` and its second
+    sampled batch (gathered on the card, as the evaluator's device_gather
+    does), after the first one has hosted the compact_first guard and the
+    warm-up."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from transductive_clip_tpu_torch.core.config import load_full_config
     from transductive_clip_tpu_torch.features.cache import (
@@ -539,7 +541,6 @@ def profile_batch(root, solver):
         softmax_cache_path,
     )
     from transductive_clip_tpu_torch.methods import get_zero_shot_method
-    from transductive_clip_tpu_torch.ops.common import to_host
     from transductive_clip_tpu_torch.tasks import (
         CategoriesSamplerZeroShot,
         SamplerQueryZeroShot,
@@ -557,22 +558,39 @@ def profile_batch(root, solver):
     sampler.create_list_classes(labels)
     method = get_zero_shot_method(cfg.name_method, args=cfg)
     feats_dev = torch.as_tensor(feats, device="cuda")
-    for b in range(2):
+    tasks = []
+    for _ in range(2):
         idx = np.stack(list(SamplerQueryZeroShot(sampler)))
-        # gathered on the card, as the evaluator's device_gather does
-        task = {"x_q": feats_dev[torch.as_tensor(idx, device="cuda")],
-                "y_q": labels[idx][..., None]}
-        if b == 0:
-            method.run_task(task)
-            continue
-        torch.cuda.synchronize()
-        to_host.syncs = 0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            method.run_task(task)
-            wall_us = (time.perf_counter() - t0) * 1e6
-    _report_profile(f"zero-shot {solver}", prof, wall_us, to_host.syncs)
+        tasks.append({"x_q": feats_dev[torch.as_tensor(idx, device="cuda")],
+                      "y_q": labels[idx][..., None]})
+    method.run_task(tasks[0])
+    return method, tasks[1]
+
+
+def profile_batch(root, solver):
+    """Where one steady-state batch of the zero-shot soft main path spends
+    its time: the method's run_task on a steady batch under torch.profiler;
+    prints the top kernels by device time, the device's busy share of the
+    wall clock, and K1's device time and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from transductive_clip_tpu_torch.ops.common import to_host
+
+    method, task = steady_batch(root, solver)
+    torch.cuda.synchronize()
+    to_host.syncs = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        method.run_task(task)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, _ = _report_profile(f"zero-shot {solver}", prof, wall_us,
+                                to_host.syncs)
+    k1 = [e for e in events if "dirichlet_row_solve" in e.key]
+    log(f"profile zero-shot {solver}: dirichlet_row_solve (K1) "
+        f"{sum(_dev_us(e) for e in k1) / 1e3:.3f} ms of device time in "
+        f"{sum(e.count for e in k1)} launches; host_syncs {to_host.syncs}")
 
 
 def profile_tim_steps(method, task, n_steps=3):
@@ -1245,6 +1263,7 @@ def main():
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
         from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
         from transductive_clip_tpu_torch.ops import cuda_tim as ct
+        from transductive_clip_tpu_torch.ops import dirichlet_fixtures as fx
         from transductive_clip_tpu_torch.ops import kernel_build
         from transductive_clip_tpu_torch.ops.common import resolve_device
     except ImportError as e:
@@ -1315,9 +1334,32 @@ def main():
         a0, y = solve_inputs(N_TASK, 32, N_CLASS, 2)
         for name in ("dirichlet_row_solve", "mm_row_solve"):
             wrapper = kernels[name][0]
-            records[name]["ms_rows32"] = time_ms(lambda: wrapper(a0, y))
+            records[name]["ms_rows32"] = time_ms(lambda: wrapper(a0, y),
+                                                 inner=10)
             log(f"{name} [{N_TASK}, 32, {N_CLASS}]: ms "
                 f"{records[name]['ms_rows32']:.4f}")
+        # K2 at the few-shot path's full width, every row live: the kernel
+        # alone (its plain version takes seconds a call)
+        a0, y = solve_inputs(N_TASK, N_CLASS, N_CLASS, 4, hard_odd=False)
+        rec = records["mm_row_solve"]
+        rec["ms_full_width"] = time_ms(lambda: cd.mm_row_solve(a0, y), runs=3)
+        log(f"mm_row_solve [{N_TASK}, {N_CLASS}, {N_CLASS}] every row live: "
+            f"ms {rec['ms_full_width']:.4f}")
+        # special.cuh's fast paths against the compiler's operations, on
+        # every float of their domains
+        bad = fx.check_fast_paths()
+        log(f"special.cuh fast paths, floats whose bits differ: {bad}")
+        if any(bad.values()):
+            fail(f"special.cuh fast paths differ from IEEE fp32: {bad}")
+        # untimed edges of the cluster design
+        for seed, case in enumerate(fx.SOLVE_EDGES, start=20):
+            a0, y = fx.edge_solve_inputs(*case, seed)
+            for name in ("dirichlet_row_solve", "mm_row_solve"):
+                wrapper, plain, _, _ = kernels[name]
+                err = check_kernel(name, wrapper, plain, a0, y,
+                                   False)["max_abs_err"]
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
         del a0, y
 
     with Phase("k3_vs_plain"):
@@ -1384,7 +1426,8 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
-            **{key: rec[key] for key in ("few_shot_launches",
+            **{key: rec[key] for key in ("sfu_bound_ms", "ms_full_width",
+                                         "few_shot_launches",
                                          "vit_path_launches") if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)

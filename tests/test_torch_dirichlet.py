@@ -8,6 +8,8 @@ Solver tolerance: a relative difference < 1e-3. The fp32 reductions are
 summed in another order, so a stop test near ``tol`` can fire one check
 apart on the two sides."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,8 @@ import jax.numpy as jnp
 
 from transductive_clip_tpu.ops import dirichlet as jd
 from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+from transductive_clip_tpu_torch.ops import dirichlet_fixtures as fx
+from transductive_clip_tpu_torch.ops import kernel_build
 from transductive_clip_tpu_torch.ops import dirichlet as td
 
 torch.set_num_threads(2)
@@ -233,3 +237,274 @@ def test_kernels_match_plain_versions_on_card(rng):
         ref = plain(a, yy)
         assert _rel(got.cpu().numpy(), ref.cpu().numpy()) < 1e-3
         assert torch.equal(got[0, 3], a[0, 3])
+
+
+def test_launch_geometry_equals_the_source():
+    """launch_geometry's constants against csrc/dirichlet_solve.cu, and the
+    geometry it gives: whole blocks covered by a cluster's CTAs, rows and
+    shared memory within what the kernels check, ~32 warps an SM at the
+    main path's widths."""
+    text = (kernel_build.CSRC / cd.SOURCE).read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} =\s*([^;]+);", text).group(1)
+        return eval(expr.replace("/", "//"), {},   # C's integer division
+                    {n: const(n) for n in re.findall(r"k[A-Z]\w+", expr)})
+
+    assert (const("kClusterCtas"), const("kMaxBlockRows"),
+            const("kMaxRowsPerCta"), const("kMinThreads"),
+            const("kMaxThreads"), const("kSmemMax"), const("kSmemStatic")) == (
+        cd.CLUSTER_CTAS, cd.MAX_BLOCK_ROWS, cd.MAX_ROWS_PER_CTA,
+        cd.MIN_THREADS, cd.MAX_THREADS, cd.SMEM_MAX, cd.SMEM_STATIC)
+    assert "__launch_bounds__(kMaxThreads)" in text
+    assert "2 * sizeof(float) * (size_t)rows_per_cta * k" in text
+    assert "smem_bytes + kSmemStatic <= kSmemMax" in text
+    for r in (1, 8, 9, 13, 32, 91, 96, 128, 256, 1000):
+        for k in (31, 33, 150, 1000, 1008):
+            g = cd.launch_geometry(r, k)
+            assert g["supported"]
+            assert g["block_rows"] == cd.block_rows_for(r)
+            assert g["ctas"] * g["rows_per_cta"] >= g["block_rows"]
+            assert g["rows_per_cta"] <= cd.MAX_ROWS_PER_CTA
+            assert g["smem_bytes"] == 8 * g["rows_per_cta"] * k
+            assert g["smem_bytes"] + cd.SMEM_STATIC <= cd.SMEM_MAX
+            assert g["threads"] % 32 == 0
+            assert cd.MIN_THREADS <= g["threads"] <= cd.MAX_THREADS
+    warps = {}
+    for r in (32, 91, 1000):
+        g = cd.launch_geometry(r, 1000)
+        per_sm = cd.SMEM_SM // (g["smem_bytes"] + cd.SMEM_CTA_RESERVE)
+        warps[r] = per_sm * g["threads"] // 32
+    assert warps == {32: 36, 91: 32, 1000: 32}
+    # the rows and the static Meta block within the CTA's 227 KB
+    assert cd.launch_geometry(128, 1812)["supported"]
+    assert not cd.launch_geometry(128, 1813)["supported"]
+    assert cd.launch_geometry(8, 28992)["supported"]
+    assert not cd.launch_geometry(8, 28993)["supported"]
+    assert not cd.launch_geometry(300, 100, block_rows=256)["supported"]
+
+
+@pytest.mark.parametrize("n_rows", [1, 13, 91, 96, 128])
+def test_live_row_deal_is_even_and_exact(n_rows):
+    """The kernels' deal (mirrored by deal_rows): every live row is owned by
+    exactly one CTA, every frozen row copied by exactly one, and the CTAs'
+    shares of live rows differ by at most one row, with frozen rows mixed
+    in at random, in runs, or not at all."""
+    rng = np.random.default_rng(n_rows)
+    masks = [np.ones(n_rows, bool), np.zeros(n_rows, bool),
+             rng.random(n_rows) < 0.3, rng.random(n_rows) < 0.8,
+             np.arange(n_rows) < min(12, n_rows),     # one by-position share
+             np.arange(n_rows) == n_rows - 1]
+    for live in masks:
+        shares = cd.deal_rows(live)
+        assert len(shares) == cd.CLUSTER_CTAS
+        owned_live = sorted(r for lv, _ in shares for r in lv)
+        owned_frozen = sorted(r for _, fr in shares for r in fr)
+        assert owned_live == np.flatnonzero(live).tolist()
+        assert owned_frozen == np.flatnonzero(~live).tolist()
+        sizes = [len(lv) for lv, _ in shares]
+        assert max(sizes) - min(sizes) <= 1
+        assert max(sizes) <= cd.MAX_ROWS_PER_CTA
+        for lv, fr in shares:
+            assert lv == sorted(lv) and fr == sorted(fr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", fx.SOLVE_EDGES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_kernels_edge_cases_on_card(case):
+    """K1 and K2 against their plain versions at the edges of the cluster
+    design: max relative difference < 1e-3, frozen rows bit-equal, one
+    launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    n_task, n_rows, k, what = case
+    a0, y = fx.edge_solve_inputs(n_task, n_rows, k, what, seed=n_rows + k)
+    live = y[..., 0] < cd.ROW_FREEZE / 2
+    for wrapper, plain in ((cd.dirichlet_row_solve, cd.dirichlet_row_solve_reference),
+                           (cd.mm_row_solve, cd.mm_row_solve_reference)):
+        before = wrapper.launches
+        got = wrapper(a0, y)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = plain(a0, y)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got[~live], a0[~live])
+        assert _rel(got.cpu().numpy(), ref.cpu().numpy()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_widest_supported_rows_launch_on_card():
+    """At 128-row blocks K = 1812 is the widest row whose CTA share (16
+    rows of alpha and y) fits beside the static Meta block in a CTA's
+    227 KB: both kernels launch there and hold against their plain
+    versions; K = 1813 is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    a0, y = fx.synthetic_solve_inputs(1, 128, 1812, seed=1812)
+    for wrapper, plain in ((cd.dirichlet_row_solve, cd.dirichlet_row_solve_reference),
+                           (cd.mm_row_solve, cd.mm_row_solve_reference)):
+        got = wrapper(a0, y)
+        assert _rel(got.cpu().numpy(), plain(a0, y).cpu().numpy()) < 1e-3
+        wide = torch.ones(1, 128, 1813, device="cuda")
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="too wide"):
+            wrapper(wide, -wide)
+        assert wrapper.launches == before
+
+
+def _newton_per_step(alpha0, y_cst, max_iters=30, tol=1e-11, newton_iters=3,
+                     row_mask=None):
+    """The Newton-Minka solve as it read its criterion on the host after
+    every step (before the device-side stop flag), the reference for
+    bit-equality; returns (alpha, steps)."""
+    from transductive_clip_tpu_torch.ops.special import (
+        digamma_pos,
+        inv_digamma,
+        inv_digamma_and_deriv,
+        trigamma_pos,
+    )
+
+    s = alpha0.sum(-1)
+
+    def newton_step(s):
+        z = digamma_pos(s)[..., None] + y_cst
+        alpha, dinv = inv_digamma_and_deriv(z, newton_iters=newton_iters)
+        a_sum = alpha.sum(-1)
+        fprime = trigamma_pos(s) * dinv.sum(-1) - 1.0
+        s_newton = s - (a_sum - s) / fprime
+        ok = (torch.isfinite(s_newton) & (s_newton > 0.0)
+              & (torch.abs(fprime) > 1e-12))
+        return torch.where(ok, s_newton, a_sum)
+
+    steps = 0
+    for _ in range(max_iters):
+        s_new = newton_step(s)
+        steps += 1
+        if row_mask is not None:
+            s_new = torch.where(row_mask, s_new, s)
+        num = ((s_new - s) ** 2).sum()
+        s_live = s if row_mask is None else torch.where(row_mask, s, 0.0)
+        crit = num / torch.clamp_min((s_live * s_live).sum(), 1e-30)
+        s = s_new
+        if bool(crit < tol):
+            break
+    alpha = inv_digamma(digamma_pos(s)[..., None] + y_cst,
+                        newton_iters=newton_iters)
+    if row_mask is not None:
+        alpha = torch.where(row_mask[..., None], alpha, alpha0)
+    return alpha, steps
+
+
+def _newton_cases(rng):
+    a0, y = _case_dense(rng)
+    a0r, yr = _case_ragged(rng)
+    mask = np.ones(a0.shape[:2], bool)
+    mask[0, [1, 7, 19]] = False
+    mask[1, 0] = False
+    scaled = (a0 * rng.uniform(0.5, 2.0, size=a0.shape)).astype(np.float32)
+    return [(a0, y, None, 1e-11), (scaled, y, mask, 1e-11),
+            (a0r, yr, None, 1e-11), (a0, y, None, 1e-14),
+            (scaled, y, mask, 0.0)]
+
+
+@pytest.mark.parametrize("check_every", [None, 2])
+@pytest.mark.parametrize("case", range(5))
+def test_newton_minka_device_stop_is_bit_equal_to_per_step(rng, case,
+                                                            check_every,
+                                                            monkeypatch):
+    """minka_newton_update_alpha with its device-side stop flag, read every
+    k steps (NEWTON_CHECK_EVERY as it stands, or set to 2), gives the bits
+    of the loop that read its criterion after every step, with and without
+    row_mask, matches the JAX function within 1e-3, runs at most k - 1
+    steps past the stop, and reads the host at most ceil(steps / k) + 1
+    times for the steps it executed."""
+    if check_every is not None:
+        monkeypatch.setattr(td, "NEWTON_CHECK_EVERY", check_every)
+    k = td.NEWTON_CHECK_EVERY
+    assert 1 < k <= 4
+    a0, y, mask, tol = _newton_cases(rng)[case]
+    ta, ty = torch.as_tensor(a0), torch.as_tensor(y)
+    tm = None if mask is None else torch.as_tensor(mask)
+    ref, ref_steps = _newton_per_step(ta, ty, tol=tol, row_mask=tm)
+    executed = [0]
+    step_fn = td.inv_digamma_and_deriv
+
+    def counted(*args, **kw):
+        executed[0] += 1
+        return step_fn(*args, **kw)
+
+    monkeypatch.setattr(td, "inv_digamma_and_deriv", counted)
+    syncs = td.to_host.syncs
+    got = td.minka_newton_update_alpha(ta, ty, tol=tol, row_mask=tm)
+    syncs = td.to_host.syncs - syncs
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    steps = executed[0]
+    assert ref_steps <= steps <= min(30, ref_steps + k - 1)
+    assert syncs <= -(-steps // k) + 1
+    assert syncs < ref_steps or ref_steps < k
+    jref = jd.minka_newton_update_alpha(
+        jnp.asarray(a0), jnp.asarray(y), tol=tol,
+        row_mask=None if mask is None else jnp.asarray(mask))
+    assert _rel(got.numpy(), np.asarray(jref)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_special_fast_paths_give_the_compilers_bits_on_card():
+    """Every float of each fast path's domain: NormalOps' reciprocal,
+    constant divisions and log give the bits of 1.0f / x, a / c and logf,
+    and both series give the same bits on NormalOps and IeeeOps over
+    [2^-126, 2^40] (csrc/special_check.cu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    assert fx.check_fast_paths() == {name: 0 for name in fx.FAST_PATH_CHECKS}
+
+
+def test_special_constants_are_the_correctly_rounded_reciprocals():
+    """special.cuh's RN(1/c) constants and the fast-path range: each
+    constant is the float nearest 1/c (exact rational arithmetic), and the
+    range keeps every argument of a series' reciprocals, logs and constant
+    divisions inside the fast paths' domains."""
+    from fractions import Fraction
+
+    text = (kernel_build.CSRC / "special.cuh").read_text()
+    for c in (252, 42, 1260):
+        lit = re.search(rf"constexpr float kRcp{c} = ([^;]+)f;", text).group(1)
+        got = np.float32(float.fromhex(lit))
+        below = np.nextafter(got, np.float32(0))
+        above = np.nextafter(got, np.float32(1))
+        err = abs(Fraction(float(got)) - Fraction(1, c))
+        assert err < abs(Fraction(float(below)) - Fraction(1, c))
+        assert err < abs(Fraction(float(above)) - Fraction(1, c))
+    lo = float.fromhex(re.search(r"kNormalLo = ([^;]+)f;", text).group(1))
+    hi = float.fromhex(re.search(r"kNormalHi = ([^;]+)f;", text).group(1))
+    assert lo == 2.0 ** -126 and hi == 2.0 ** 40
+    # reciprocals and logs of x .. x + 4: normal and below 2^126; inv^2 of
+    # x + 4 inside the divisions' [2^-100, 2^100]
+    assert hi + 4 < 2.0 ** 126
+    inv2_lo = np.float32(np.float32(1) / np.float32(hi + 4)) ** 2
+    assert inv2_lo >= 2.0 ** -100 and (1 / 4) ** 2 <= 2.0 ** 100
+    check = (kernel_build.CSRC / "special_check.cu").read_text()
+    assert "0x00800000u;   // 2^-126 = kNormalLo" in check
+    assert "0x53800000u;   // 2^40 = kNormalHi" in check
+    assert np.float32(2.0 ** 40).view(np.uint32) == 0x53800000
+
+
+def test_dirichlet_variants_apply_to_their_bases():
+    """Every textual variant of ops/dirichlet_variants.py still applies to
+    its base (the source as it stands, or the first design kept as text),
+    and the first design keeps the launchers its callers bind."""
+    from transductive_clip_tpu_torch.ops import dirichlet_variants as dv
+
+    texts = dv.variant_sources()
+    assert set(texts) == set(dv.VARIANTS)
+    for name, (base, subs, *_) in dv.VARIANTS.items():
+        assert texts[name] != texts[base] or not subs
+        for _, new in subs:
+            assert new in texts[name]
+    first = texts["first"]
+    for fn in ("tclip_dirichlet_row_solve", "tclip_mm_row_solve",
+               "tclip_error_string"):
+        assert 'extern "C"' in first and f"{fn}(" in first
+    assert '#include "special.cuh"' not in first    # self-contained
+    assert "cudaLaunchKernelEx" in texts["source"]

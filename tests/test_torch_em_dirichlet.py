@@ -167,3 +167,29 @@ def test_method_guard_and_launch_counts_on_cpu(rng):
     np.testing.assert_array_equal(logs["preds"], ref["preds"])
     np.testing.assert_array_equal(logs["acc"], ref["acc"])
     assert logs["criterions"].shape == ref["criterions"].shape
+
+
+@pytest.mark.parametrize("pipeline", ["run_task_fused", "run_task_deferred"])
+@pytest.mark.parametrize("shots,name", [(0, "EM_DIRICHLET"),
+                                        (0, "HARD_EM_DIRICHLET"),
+                                        (4, "EM_DIRICHLET"),
+                                        (4, "ALPHA_TIM")])
+def test_unported_pipelines_raise_naming_their_item(shots, name, pipeline):
+    """Zero- and few-shot methods alike raise the NotImplementedError that
+    names the ROADMAP.md item of the deferred and fused pipelines, not an
+    AttributeError."""
+    from transductive_clip_tpu_torch.core.config import load_full_config
+    from transductive_clip_tpu_torch.methods import (
+        get_few_shot_method,
+        get_zero_shot_method,
+    )
+    from transductive_clip_tpu_torch.methods.base import PIPELINES
+
+    cfg = load_full_config(opts=["dataset", "eurosat", "method", name.lower(),
+                                 "shots", str(shots)], config_root="config")
+    get = get_zero_shot_method if shots == 0 else get_few_shot_method
+    method = get(name, device="cpu", args=cfg)
+    with pytest.raises(NotImplementedError) as err:
+        getattr(method, pipeline)([])
+    assert pipeline in str(err.value)
+    assert f"ROADMAP.md: {PIPELINES}" in str(err.value)

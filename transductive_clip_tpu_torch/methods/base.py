@@ -499,6 +499,14 @@ class TransductiveMethod:
             **self._timing_logs_for(elapsed, n_task, n_exec, criterions),
         }
 
+    def run_task_fused(self, *args, **kwargs):
+        raise unported("run_task_fused (the fused one-dispatch pipeline)",
+                       PIPELINES)
+
+    def run_task_deferred(self, *args, **kwargs):
+        raise unported("run_task_deferred (the deferred-fetch pipeline)",
+                       PIPELINES)
+
 
 class FewShotMethod(TransductiveMethod):
     """Base of the few-shot methods: support features and labels ride with
@@ -516,11 +524,3 @@ class FewShotMethod(TransductiveMethod):
         task["y_s"] = torch.as_tensor(y_s, dtype=torch.int64,
                                       device=self.device)
         return task, y_q
-
-    def run_task_fused(self, *args, **kwargs):
-        raise unported("run_task_fused (the fused one-dispatch pipeline)",
-                       PIPELINES)
-
-    def run_task_deferred(self, *args, **kwargs):
-        raise unported("run_task_deferred (the deferred-fetch pipeline)",
-                       PIPELINES)

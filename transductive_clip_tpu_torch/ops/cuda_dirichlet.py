@@ -12,7 +12,9 @@ Each solves psi(a_d) - psi(sum a) = y_d for every cluster row of
 alpha0, y: [N, R, K] fp32, with a block of ``min(128, round_up(R, 8))`` rows
 of one task stopping together, and keeps the ``ROW_FREEZE`` sentinel
 contract: a row whose first y lane is >= ROW_FREEZE / 2 comes back with its
-incoming alpha, bit for bit, and is left out of the stop criterion.
+incoming alpha, bit for bit, and is left out of the stop criterion. On the
+card a stopping block is one thread-block cluster whose CTAs share its live
+rows (``launch_geometry``, ``deal_rows``; the source's head comment).
 
 Each wrapper takes its plain torch version — same blocks, masks, sentinel
 and stop rule — for tensors on the CPU, and only then; for CUDA tensors it
@@ -54,15 +56,86 @@ def block_rows_for(n_rows: int, block_rows: int = 128) -> int:
     return min(block_rows, _round_up(n_rows, 8))
 
 
+# Launch geometry, mirrored by the constants of csrc/dirichlet_solve.cu
+# (tests/test_torch_dirichlet.py holds the two against each other).
+CLUSTER_CTAS = 8          # CTAs of a stopping block: the portable cluster size
+MAX_BLOCK_ROWS = 128      # block_rows_for's cap
+MAX_ROWS_PER_CTA = -(-MAX_BLOCK_ROWS // CLUSTER_CTAS)
+MIN_THREADS = 128         # the kernels' live-row scan takes 128 threads
+MAX_THREADS = 1024
+SMEM_MAX = 232448         # shared memory a CTA may take (227 KB)
+# the kernels' static shared memory (their Meta block; ptxas reports 496 B),
+# which SMEM_MAX covers together with the rows
+SMEM_STATIC = 512
+SMEM_SM = 233472          # an SM's shared memory (228 KB)
+# what a CTA takes besides its rows: 1 KB the hardware reserves and the
+# kernels' static Meta block
+SMEM_CTA_RESERVE = 2048
+# warps an SM should hold: 32 at the 64 registers a thread of a 1024-thread
+# CTA may have
+TARGET_WARPS_SM = 32
+
+
+def launch_geometry(n_rows: int, k: int, block_rows: int = 128) -> dict:
+    """How K1 and K2 launch for ``n_rows`` rows of width ``k``:
+    ``block_rows_for(n_rows, block_rows)`` rows stop together as one cluster
+    of ``ctas`` CTAs of ``threads`` threads; a CTA holds up to
+    ``rows_per_cta`` live rows of alpha and y in ``smem_bytes`` of dynamic
+    shared memory. The threads are chosen so that the CTAs that
+    fit an SM by shared memory hold ~TARGET_WARPS_SM warps. ``supported`` is
+    False when a CTA's rows and the static SMEM_STATIC do not fit its
+    shared memory (K > 1812 at 128-row blocks) or the blocks are wider than
+    MAX_BLOCK_ROWS."""
+    block_rows = block_rows_for(n_rows, block_rows)
+    ctas = CLUSTER_CTAS
+    rows_per_cta = -(-block_rows // ctas)
+    smem = 2 * 4 * rows_per_cta * k
+    per_sm = max(1, SMEM_SM // (smem + SMEM_CTA_RESERVE))
+    warps = -(-TARGET_WARPS_SM // per_sm)
+    threads = min(MAX_THREADS, max(MIN_THREADS, 32 * warps))
+    return {"block_rows": block_rows, "ctas": ctas, "threads": threads,
+            "rows_per_cta": rows_per_cta, "smem_bytes": smem,
+            "supported": (smem + SMEM_STATIC <= SMEM_MAX
+                          and block_rows <= MAX_BLOCK_ROWS)}
+
+
+def deal_rows(live, ctas: int = CLUSTER_CTAS):
+    """The kernels' deal of one stopping block's rows over its CTAs, as
+    lists of row indices per CTA rank: ``live`` ([rows] bools) in, (live
+    rows, frozen rows) out. The l-th live row goes to CTA l % ctas, the
+    f-th frozen row likewise (the CTA that copies it), with the kernels'
+    arithmetic: 32-bit masks of live rows, ranks by population count."""
+    live = [bool(v) for v in live]
+    words = [0] * (MAX_BLOCK_ROWS // 32)
+    for r, v in enumerate(live):
+        words[r >> 5] |= int(v) << (r & 31)
+    n_live = sum(bin(w).count("1") for w in words)
+    owned_live = [[None] * MAX_ROWS_PER_CTA for _ in range(ctas)]
+    owned_frozen = [[None] * MAX_ROWS_PER_CTA for _ in range(ctas)]
+    for t in range(len(live)):
+        below = bin(words[t >> 5] & ((1 << (t & 31)) - 1)).count("1")
+        below += sum(bin(w).count("1") for w in words[:t >> 5])
+        if (words[t >> 5] >> (t & 31)) & 1:
+            owned_live[below % ctas][below // ctas] = t
+        else:
+            f = t - below
+            owned_frozen[f % ctas][f // ctas] = t
+    n_frozen = len(live) - n_live
+    out = []
+    for rank in range(ctas):
+        n_l = (n_live - rank + ctas - 1) // ctas if n_live > rank else 0
+        n_f = (n_frozen - rank + ctas - 1) // ctas if n_frozen > rank else 0
+        out.append((owned_live[rank][:n_l], owned_frozen[rank][:n_f]))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = kernel_build.load(SOURCE)
-    lib.tclip_dirichlet_row_solve.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                              _F, _I, _P]
-    lib.tclip_dirichlet_row_solve.restype = _I
-    lib.tclip_mm_row_solve.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                       _I, _P]
-    lib.tclip_mm_row_solve.restype = _I
+    args = [_P, _P, _P] + [_I] * 9 + [_F, _I, _P]
+    for fn in ("tclip_dirichlet_row_solve", "tclip_mm_row_solve"):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = _I
     lib.tclip_error_string.argtypes = [_I]
     lib.tclip_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,7 +145,7 @@ def _on_cpu(alpha0, y_cst) -> bool:
     return alpha0.device.type == "cpu" and y_cst.device.type == "cpu"
 
 
-def _check_inputs(name, alpha0, y_cst):
+def _check_inputs(name, alpha0, y_cst, block_rows=128):
     for t, what in ((alpha0, "alpha0"), (y_cst, "y_cst")):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {what} is on {t.device}; both inputs "
@@ -94,16 +167,24 @@ def _check_inputs(name, alpha0, y_cst):
     if not (0 < n <= 65535 and r > 0 and k > 0):
         raise ValueError(f"{name}: unsupported shape {tuple(alpha0.shape)} "
                          "(need 0 < N <= 65535, R > 0, K > 0)")
+    if not launch_geometry(r, k, block_rows)["supported"]:
+        raise ValueError(f"{name}: K = {k} or block_rows = {block_rows} is "
+                         "too wide: a CTA's rows of alpha and y must fit its "
+                         f"shared memory, a block at most {MAX_BLOCK_ROWS} "
+                         "rows")
 
 
-def _launch(name, fn, alpha0, y_cst, *args):
+def _launch(name, fn, alpha0, y_cst, block_rows, *args):
     out = torch.empty_like(alpha0)
     n, r, k = alpha0.shape
+    g = launch_geometry(r, k, block_rows)
     lib = _library()
     with torch.cuda.device(alpha0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(alpha0.data_ptr(), y_cst.data_ptr(),
-                              out.data_ptr(), n, r, k, *args, stream)
+                              out.data_ptr(), n, r, k, g["block_rows"],
+                              g["ctas"], g["threads"], g["rows_per_cta"],
+                              g["smem_bytes"], *args, stream)
     if rc != 0:
         msg = lib.tclip_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} (cuda error {rc})")
@@ -118,10 +199,9 @@ def dirichlet_row_solve(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
         return dirichlet_row_solve_reference(
             alpha0, y_cst, max_iters=max_iters, tol=tol,
             newton_iters=newton_iters, block_rows=block_rows)
-    _check_inputs("dirichlet_row_solve", alpha0, y_cst)
+    _check_inputs("dirichlet_row_solve", alpha0, y_cst, block_rows)
     out = _launch("dirichlet_row_solve", "tclip_dirichlet_row_solve", alpha0,
-                  y_cst, block_rows_for(alpha0.shape[1], block_rows),
-                  max_iters, tol, newton_iters)
+                  y_cst, block_rows, max_iters, tol, newton_iters)
     dirichlet_row_solve.launches += 1
     return out
 
@@ -137,10 +217,9 @@ def mm_row_solve(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
         return mm_row_solve_reference(
             alpha0, y_cst, iter_mm=iter_mm, tol=tol, check_every=check_every,
             block_rows=block_rows)
-    _check_inputs("mm_row_solve", alpha0, y_cst)
+    _check_inputs("mm_row_solve", alpha0, y_cst, block_rows)
     out = _launch("mm_row_solve", "tclip_mm_row_solve", alpha0, y_cst,
-                  block_rows_for(alpha0.shape[1], block_rows), iter_mm, tol,
-                  check_every)
+                  block_rows, iter_mm, tol, check_every)
     mm_row_solve.launches += 1
     return out
 

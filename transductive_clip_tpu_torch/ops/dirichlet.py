@@ -5,9 +5,11 @@ src/methods/zero_shot/em_dirichlet.py:28-40 and :153-177).
 The JAX package runs each solver as one device-side ``lax.while_loop``.
 Here the loops are Python loops over torch ops, and each stop test is one
 host transfer (``common.to_host``): the MM loop tests every 50 updates, the
-Minka loops every block or step. The two kernel families ('pallas' and
-'mm_pallas', names kept so configs work unchanged) run their whole loop on
-the card inside one launch (``cuda_dirichlet``) and make no transfer.
+Minka fixed point every block of 4 iterations, and the Newton-Minka solve
+reads a device-side stop flag every NEWTON_CHECK_EVERY steps. The two
+kernel families ('pallas' and 'mm_pallas', names kept so configs work
+unchanged) run their whole loop on the card inside one launch
+(``cuda_dirichlet``) and make no transfer.
 """
 
 from __future__ import annotations
@@ -137,6 +139,14 @@ def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
     return alpha
 
 
+# steps between the Newton-Minka solve's host reads of its stop flag: a
+# larger interval makes fewer syncs and runs up to NEWTON_CHECK_EVERY - 1
+# steps past the stop. Chosen by the wall clock of a whole zero-shot `auto`
+# evaluation, first batch and steady ones
+# (``dirichlet_variants --newton-reads``; PERF.md)
+NEWTON_CHECK_EVERY = 4
+
+
 def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
                               tol: float = 1e-11, newton_iters: int = 3,
                               row_mask=None):
@@ -145,7 +155,15 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
     as the fixed point, reached quadratically. A guard takes the plain
     fixed-point step A(s) wherever the Newton step is non-finite,
     non-positive, or F' degenerate. ``row_mask``: False rows are frozen at
-    ``alpha0`` and excluded from the criterion."""
+    ``alpha0`` and excluded from the criterion.
+
+    The stop is the JAX ``lax.while_loop``'s, kept on the device: a
+    ``done`` flag turns on at the first step whose criterion is under
+    ``tol``, and from then on ``s`` stays at that step's value. The host
+    reads the flag every NEWTON_CHECK_EVERY steps, so a solve makes one
+    transfer for every NEWTON_CHECK_EVERY steps and runs at most
+    NEWTON_CHECK_EVERY - 1 steps past its stop, which change nothing."""
+    check_every = NEWTON_CHECK_EVERY
     s = alpha0.sum(-1)                                        # [..., R]
     live = row_mask
 
@@ -159,15 +177,17 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
               & (torch.abs(fprime) > 1e-12))
         return torch.where(ok, s_newton, a_sum)
 
-    for _ in range(max_iters):
+    done = torch.zeros((), dtype=torch.bool, device=s.device)
+    for it in range(1, max_iters + 1):
         s_new = newton_step(s)
         if live is not None:
             s_new = torch.where(live, s_new, s)
         num = ((s_new - s) ** 2).sum()
         s_live = s if live is None else torch.where(live, s, 0.0)
         crit = _crit(num, (s_live * s_live).sum())
-        s = s_new
-        if _below(crit, tol):
+        s = torch.where(done, s, s_new)
+        done = done | (crit < tol)
+        if it % check_every == 0 and it < max_iters and to_host(done):
             break
     # one final elementwise pass at the converged row-sum
     alpha = inv_digamma(digamma_pos(s)[..., None] + y_cst,
