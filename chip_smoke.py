@@ -55,9 +55,11 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    edges (n = 80, 128) and n = 577 bf16, without a mask, with the causal
    one and with a general one that kills whole key tiles for some rows; K5
    against its plain version at the four RN50 identity shapes at batch 512
-   in bf16, one fp32 case, and untimed at the edges of the bf16 kernel's
-   tiles (W not a multiple of 8, Cm = 24 and 72, an image smaller than a
-   strip, a last strip of one row); max difference over the output's magnitude
+   in bf16 and at batch 64 in fp32 (each summed over the 12 launches of a
+   batch, the fp32 shapes with the weight bytes their blocks read from L2),
+   and untimed at the edges of the kernels' tiles (W not a multiple of 8,
+   Cm = 24 and 72, an image smaller than a strip, a last strip of one row,
+   rows off 16 bytes); max difference over the output's magnitude
    under K4_LIMIT / K5_LIMIT; kernel, plain and (for K4)
    scaled_dot_product_attention times beside the bound (K4: 20 calls queued
    in each timed window, the time of a lone call beside);
@@ -74,7 +76,12 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    (forward hooks), under K4_LIMIT; one batch timed through the kernel
    route and through the model's own plain route (``fused_resnet`` off:
    cuDNN's bf16 convolutions); a torch.profiler breakdown of one steady
-   batch;
+   batch; then RN50 under float32 (``fused_resnet=True``: K5's fp32 kernel
+   on the 12 identity blocks of every batch, K4a in the text tower) over
+   every 32nd image of that split (254 images, cut from 8100), batches of
+   64, to its own T = 30 cache, one batch's features held against the plain
+   route (cuDNN's fp32 convolutions, TF32 off) under 1e-4, and one batch
+   timed on both routes;
 9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
    text tower) over every 32nd image of that split (254 images, cut from
    8100), batches of 64, its features and its first and last attention
@@ -161,10 +168,10 @@ K5_LIMIT = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16, so the roundings drift apart (the first H100 80GB HBM3 runs read
 # 5.5e-3 for the images, 1.2e-2 for the text); ViT-L/14@336px fp32: only
 # the order of the sums differs
-FEATURE_LIMIT = {"RN50": 5e-2, "ViT-L/14@336px": 1e-4}
+FEATURE_LIMIT = {"RN50": 5e-2, "RN50 fp32": 1e-4, "ViT-L/14@336px": 1e-4}
 # the extraction slice: EuroSAT as the CoOp split has it (8100 test images,
-# 10 classes), batches of extract_batch_size 512; ViT-L/14@336px on every
-# 32nd test image in batches of 64
+# 10 classes), batches of extract_batch_size 512; RN50 fp32 and
+# ViT-L/14@336px on every 32nd test image in batches of 64
 EUROSAT_CLASSES = (
     "Annual Crop Land", "Forest", "Herbaceous Vegetation Land",
     "Highway or Road", "Industrial Buildings", "Pasture Land",
@@ -190,6 +197,16 @@ K3_EDGES = ((2, 127, 128, 97), (2, 128, 150, 1000), (2, 129, 128, 1008),
 # conv1 walks two chunks of rows, Cm = 72 at W = 9
 K5_EDGES = ((3, 9, 11, 72, 24), (1, 5, 7, 30, 12), (3, 7, 7, 64, 72),
             (1, 5, 100, 16, 72), (1, 12, 9, 48, 72))
+# K5 at the edges of the fp32 kernel's strips: a last strip of one row at
+# W = 80, Cm = 72 (H = 5 in strips of 2, conv1 over two chunks of rows) and
+# at W = 150, Cm = 24 with rows off 16 bytes (H = 7 in strips of 3), and
+# Cm = 6, whose weight rows are off 16 bytes
+K5_EDGES_F32 = ((1, 5, 80, 16, 72), (1, 7, 150, 30, 24), (2, 6, 5, 20, 6))
+# the fp32 RN50 batch of the extraction_rn50_fp32 cut and of K5 fp32's
+# headline ([64, 14, 14, 1024] / 256, as earlier kernel times were taken);
+# K5 fp32 and the fp32 image tower are also timed at EXTRACT_BATCH, the
+# batch an fp32 extraction runs by default
+F32_BATCH = 64
 
 
 def log(msg):
@@ -860,7 +877,9 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
 def check_bottleneck(b, h, w, c, c_mid, dtype, seed, timing):
     """K5 vs its plain version on random inputs in the kernel layout; with
     ``timing``, kernel and plain (cuDNN convolutions) times beside the
-    bound (the three convolutions' operations; x, out and weight bytes)."""
+    bound (the three convolutions' operations; x, out and weight bytes) and
+    the weight bytes the blocks read from L2 (each of the B x strips blocks
+    reads the three weight matrices once: counted, not measured)."""
     import torch
 
     from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
@@ -888,13 +907,18 @@ def check_bottleneck(b, h, w, c, c_mid, dtype, seed, timing):
         nbytes = sum(a.numel() * a.element_size() for a in args) + (
             got.numel() * got.element_size())
         peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_BF16_S
+        strips = -(-h // cb.strip_rows(h, w, c, c_mid, dtype))
+        weights = sum(a.numel() * a.element_size()
+                      for a in (args[1], args[3], args[5]))
         out.update(ms=time_ms(lambda: cb.fused_identity_bottleneck(*args)),
                    plain_ms=time_ms(
                        lambda: cb.fused_identity_bottleneck_reference(*args)),
+                   l2_weight_bytes=b * strips * weights,
                    **_bound(ops, nbytes, peak))
         log(f"{name}: ms {out['ms']:.4f} plain_ms {out['plain_ms']:.4f} "
             f"bound_ms {out['bound_ms']:.4f} ({out['bound_by']}: "
-            f"{ops:.4e} ops, {nbytes:.4e} bytes)")
+            f"{ops:.4e} ops, {nbytes:.4e} bytes) weights from L2 "
+            f"{out['l2_weight_bytes']:.4e} bytes ({b} x {strips} blocks)")
     del args, got, ref
     torch.cuda.empty_cache()
     return out
@@ -939,35 +963,49 @@ def run_kernel_checks_clip(records):
                                      + [rec[k]["max_abs_err"] for k in keys])
         records["attention_rows"], records["attention_blocked"] = rows, blocked
     with Phase("k5_vs_plain"):
-        # one record for a batch of 512 images: the sums over its 12
-        # launches (2, 3, 5 and 2 at the four stages' shapes)
-        rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "per_shape": []}
-        ops_bound = 0.0
-        for (h, w, c), c_mid, count in RN50_IDENTITY:
-            one = check_bottleneck(EXTRACT_BATCH, h, w, c, c_mid, bf16, h,
-                                   True)
-            rec["max_abs_err"] = max(rec["max_abs_err"], one["max_abs_err"])
-            for key in ("ms", "plain_ms", "bound_ms"):
-                rec[key] += count * one[key]
-            if one["bound_by"] == "operations":
-                ops_bound += count * one["bound_ms"]
-            rec["per_shape"].append({"shape": [EXTRACT_BATCH, h, w, c, c_mid],
-                                     "launches_a_batch": count, **one})
-        rec["bound_by"] = ("operations" if ops_bound >= rec["bound_ms"] / 2
-                           else "bytes")
-        rec["fp32"] = check_bottleneck(64, 14, 14, 1024, 256, fp32, 3, True)
-        errs = [rec["max_abs_err"], rec["fp32"]["max_abs_err"]]
+        # one record for a batch (bf16: 512 images, fp32: 64 and 512): the
+        # sums over its 12 launches (2, 3, 5 and 2 at the four stages' shapes)
+        def batch_record(batch, dtype, seed_add):
+            rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "per_shape": []}
+            ops_bound = 0.0
+            for (h, w, c), c_mid, count in RN50_IDENTITY:
+                one = check_bottleneck(batch, h, w, c, c_mid, dtype,
+                                       h + seed_add, True)
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         one["max_abs_err"])
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    rec[key] += count * one[key]
+                if one["bound_by"] == "operations":
+                    ops_bound += count * one["bound_ms"]
+                rec["per_shape"].append({"shape": [batch, h, w, c, c_mid],
+                                         "launches_a_batch": count, **one})
+            rec["bound_by"] = ("operations" if ops_bound >= rec["bound_ms"] / 2
+                               else "bytes")
+            log(f"fused_identity_bottleneck {str(dtype)[6:]}, a batch of "
+                f"{batch} (12 launches): ms {rec['ms']:.4f} plain_ms "
+                f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}")
+            return rec
+
+        rec = batch_record(EXTRACT_BATCH, bf16, 0)
+        rec["fp32"] = batch_record(F32_BATCH, fp32, 1)
+        # the fp32 row's headline: [64, 14, 14, 1024] / 256
+        rec["fp32"]["layer3"] = rec["fp32"]["per_shape"][2]
+        rec["fp32"]["batch_512"] = batch_record(EXTRACT_BATCH, fp32, 2)
+        errs = [rec["max_abs_err"], rec["fp32"]["max_abs_err"],
+                rec["fp32"]["batch_512"]["max_abs_err"]]
         for seed, shape in enumerate(K5_EDGES, start=4):
             for dtype in (bf16, fp32):
-                # two rows of [100, 72] fp32 are over the fp32 kernel's budget
-                if cb.fused_bottleneck_supported(*shape[1:], dtype):
-                    errs.append(check_bottleneck(*shape, dtype, seed,
-                                                 False)["max_abs_err"])
+                # the gate takes every one of these shapes in both dtypes
+                # (fp32's [5, 100, 16] / 72 in strips of one row)
+                if not cb.fused_bottleneck_supported(*shape[1:], dtype):
+                    fail(f"K5 gate refuses {shape} {dtype}")
+                errs.append(check_bottleneck(*shape, dtype, seed,
+                                             False)["max_abs_err"])
+        for seed, shape in enumerate(K5_EDGES_F32, start=10):
+            errs.append(check_bottleneck(*shape, fp32, seed,
+                                         False)["max_abs_err"])
         rec["max_abs_err"] = max(errs)
-        log(f"fused_identity_bottleneck, a batch of {EXTRACT_BATCH} (12 "
-            f"launches): ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-            f"bound_ms {rec['bound_ms']:.4f}")
         records["fused_identity_bottleneck"] = rec
 
 
@@ -1162,7 +1200,8 @@ def extract(label, model, args, dataset, items, size, batch, counters):
 
 
 def run_extraction(root, counters, records, launches):
-    """Phases extraction_rn50 and extraction_vitl336_fp32."""
+    """Phases extraction_rn50, extraction_rn50_fp32,
+    zero_shot_eval_rn50_cache and extraction_vitl336_fp32."""
     import numpy as np
     import torch
 
@@ -1213,6 +1252,45 @@ def run_extraction(root, counters, records, launches):
         time_routes("RN50", model, first)
         profile_encode("RN50 encode, one batch of 512", model, first)
         del model, first
+        torch.cuda.empty_cache()
+    with Phase("extraction_rn50_fp32"):
+        # the same checkpoint under float32: K5's fp32 kernel on the 12
+        # identity blocks; its own cache root, so the zero-shot phase below
+        # reads the bf16 cache of the whole split
+        model, _ = load("RN50", compute_dtype=torch.float32,
+                        fused_resnet=True)
+        model.fused_blocks = [b for b in model.module.visual.blocks()
+                              if b.fuse]
+        log(f"RN50 fp32: {model.compute_dtype} attention "
+            f"{model.attention_impl} fold_bn {model.fold_bn} fused blocks "
+            f"{len(model.fused_blocks)}")
+        args = CfgNode(dict(dataset="eurosat", backbone="RN50",
+                            root=os.path.join(root, "rn50_fp32"),
+                            dataset_path=dataset_path))
+        items = dataset.test[::VIT_EVERY]
+        path, got, n_batches, first = extract(
+            "RN50 fp32", model, args, dataset, items, 224, F32_BATCH,
+            counters)
+        if (got["fused_identity_bottleneck"] != 12 * n_batches
+                or got["attention_rows"] != 12
+                or got["attention_blocked"] != 0):
+            fail(f"RN50 fp32 extraction launched {got}, not K5 12 a batch "
+                 f"({12 * n_batches}) and K4a 12 (one text batch)")
+        records["fused_identity_bottleneck"]["fp32_path_launches"] = got[
+            "fused_identity_bottleneck"]
+        feats, _ = load_feature_cache(path)
+        if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
+                np.isfinite(feats).all()
+                and np.allclose(feats.sum(-1), 1.0, atol=1e-4)):
+            fail(f"RN50 fp32 softmax cache: shape {feats.shape} or not "
+                 "simplex rows")
+        compare_routes("RN50 fp32", model, first, prompts, counters)
+        time_routes("RN50 fp32", model, first)
+        # and at extract_batch_size's default, as an fp32 extraction runs
+        big = next(pixel_batches(np.zeros(EXTRACT_BATCH, np.int64), 224,
+                                 EXTRACT_BATCH, SEED))[0]
+        time_routes("RN50 fp32", model, big)
+        del model, first, big
         torch.cuda.empty_cache()
     with Phase("zero_shot_eval_rn50_cache"):
         acc, sec_per_task = cli.main(
@@ -1426,9 +1504,20 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
+            # K5's fp32 kernel: a batch of 64 (12 launches), the
+            # [64, 14, 14, 1024] / 256 launch alone and a batch of 512
+            **({"fp32": {key: rec["fp32"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                | {"layer3_ms": rec["fp32"]["layer3"]["ms"],
+                   "layer3_plain_ms": rec["fp32"]["layer3"]["plain_ms"],
+                   "layer3_bound_ms": rec["fp32"]["layer3"]["bound_ms"]}
+                | {f"batch_512_{key}": rec["fp32"]["batch_512"][key]
+                   for key in ("ms", "plain_ms", "bound_ms")}}
+               if "fp32" in rec else {}),
             **{key: rec[key] for key in ("sfu_bound_ms", "ms_full_width",
                                          "few_shot_launches",
-                                         "vit_path_launches") if key in rec},
+                                         "vit_path_launches",
+                                         "fp32_path_launches") if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)
     print(json.dumps({"ok": True, "device": {

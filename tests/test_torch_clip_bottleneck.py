@@ -2,11 +2,13 @@
 against the JAX Pallas kernel in interpret mode (as
 tests/test_pallas_bottleneck.py runs it) on the same numpy inputs, the
 support gate at the 12 RN50 identity blocks, and the bottleneck module's
-fused route against its plain graph. The bf16 kernel's own order of
-operations (what a block owns, halo rows, the padded pitch, the tap-major
-contraction slice by slice) has a torch twin,
+fused route against its plain graph. The kernels' tiling (what a block
+owns, halo rows, the padded pitch, the tap-major contraction slice by
+slice) has a torch twin,
 ``fused_identity_bottleneck_tiled_reference``, held here against the plain
-version at the edges of the kernel's tiles.
+version at the edges of the kernels' tiles, and in fp32 against the JAX
+kernel too. The ``cuda``-marked cases hold the kernel against its plain
+version on the card (they skip without one).
 
 Tolerances are tests/test_pallas_bottleneck.py's: 1e-5 in fp32 (only the
 order of the fp32 sums differs) and 5e-2 in bf16 (an h1, h2 or output value
@@ -27,6 +29,7 @@ from transductive_clip_tpu_torch.models.clip.config import CLIP_CONFIGS
 from transductive_clip_tpu_torch.models.clip.resnet import Bottleneck
 from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
 from transductive_clip_tpu_torch.ops import kernel_build
+from transductive_clip_tpu_torch.ops.common import resolve_device
 
 torch.set_num_threads(2)
 
@@ -36,16 +39,22 @@ SHAPES = {"tiny": (2, 8, 8, 32, 8), "l3geom": (1, 14, 14, 64, 16),
 # the RN50 identity blocks: [H, W, C] / Cm x count
 RN50_IDENTITY = [((56, 56, 256, 64), 2), ((28, 28, 512, 128), 3),
                  ((14, 14, 1024, 256), 5), ((7, 7, 2048, 512), 2)]
-# what a block owns at each RN50 stage in bf16: rows a strip
-RN50_STRIP_ROWS_BF16 = [8, 7, 7, 7]
+# what a block owns at each RN50 stage: rows a strip
+RN50_STRIP_ROWS = {torch.bfloat16: [8, 7, 7, 7], torch.float32: [4, 4, 4, 4]}
 # (B, H, W, C, Cm) at the edges of the bf16 kernel's tiles: W not a multiple
 # of 8 and Cm = 24 / 72 (padded to 32 / 96 channels, rows not on 16 bytes
 # at C = 30), an image in one strip with no halo, a last strip of one row
 # (H = 5 in strips of 2: two rows are all that fit at W = 100, Cm = 72; its
 # conv1 walks two chunks of rows), nothing a multiple of 64
+# nothing a multiple of 64. The fp32 kernel's strips are cut by its own
+# budget: a last strip of one row at W = 80, Cm = 72 (H = 5 in strips of 2;
+# conv1 walks two chunks of rows), and at W = 150, Cm = 24 with rows off 16
+# bytes (H = 7 in strips of 3); Cm = 6, whose weight rows are off 16 bytes
 EDGES = {"w11_cm24": (2, 9, 11, 72, 24), "odd_c": (1, 5, 7, 30, 12),
          "one_strip": (3, 7, 7, 64, 72), "last_strip_1": (1, 5, 100, 16, 72),
-         "cm72_w9": (1, 12, 9, 48, 72)}
+         "cm72_w9": (1, 12, 9, 48, 72),
+         "f32_last_strip_1": (1, 5, 80, 16, 72),
+         "f32_strips_cm24": (1, 7, 150, 30, 24), "f32_cm6": (2, 6, 5, 20, 6)}
 
 
 def _block(rng, b, h, w, c, c_mid):
@@ -105,20 +114,15 @@ def test_gate_takes_all_rn50_identity_blocks(dtype):
         assert rows >= 1 and cb.fused_bottleneck_supported(h, w, c, c_mid,
                                                            dtype)
         item = 2 if dtype == torch.bfloat16 else 4
-        budget = cb.smem_budget(dtype)
+        budget = cb.SMEM_BUDGET
         assert cb.smem_bytes(w, c_mid, rows, item) <= budget
         # no fewer strips would fit: one strip less means taller strips
         strips = -(-h // rows)
         assert strips == 1 or cb.smem_bytes(
             w, c_mid, -(-h // (strips - 1)), item) > budget
-        if dtype == torch.float32:       # the largest strip that fits
-            assert rows == h or cb.smem_bytes(w, c_mid, rows + 1,
-                                              item) > budget
-        else:                            # evened over the image
-            assert rows == -(-h // strips)
-    if dtype == torch.bfloat16:
-        assert [cb.strip_rows(*shape, dtype)
-                for shape, _ in RN50_IDENTITY] == RN50_STRIP_ROWS_BF16
+        assert rows == -(-h // strips)   # evened over the image
+    assert [cb.strip_rows(*shape, dtype)
+            for shape, _ in RN50_IDENTITY] == RN50_STRIP_ROWS[dtype]
 
 
 @pytest.mark.parametrize("edge", sorted(EDGES))
@@ -126,7 +130,7 @@ def test_gate_takes_all_rn50_identity_blocks(dtype):
                                        (torch.float32, 1e-5)],
                          ids=["bf16", "fp32"])
 def test_tiled_twin_matches_plain(edge, dtype, tol):
-    """The kernel's order of operations against the plain version, which
+    """The kernel's tiling against the plain version, which
     test_plain_matches_pallas_* hold against the JAX kernel. bf16: an h1,
     h2 or output value can land on the neighbouring bf16 value; fp32: only
     the order of the sums differs."""
@@ -134,16 +138,65 @@ def test_tiled_twin_matches_plain(edge, dtype, tol):
             for a in _block(np.random.default_rng(2), *EDGES[edge])]
     args[2], args[4] = args[2].float(), args[4].float()
     _, h, w, c, c_mid = EDGES[edge]
-    if not cb.fused_bottleneck_supported(h, w, c, c_mid, dtype):
-        # two rows of [100, 72] fp32 are over the fp32 kernel's budget
-        assert (edge, dtype) == ("last_strip_1", torch.float32)
-        with pytest.raises(ValueError, match="fused_bottleneck_supported"):
-            cb.fused_identity_bottleneck_tiled_reference(*args)
-        return
+    assert cb.fused_bottleneck_supported(h, w, c, c_mid, dtype)
     got = cb.fused_identity_bottleneck_tiled_reference(*args)
     want = cb.fused_identity_bottleneck_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", ["l3geom", "f32_last_strip_1"])
+def test_tiled_twin_matches_pallas_fp32(shape):
+    """The fp32 kernel's tiling (its strips, halo rows, padded pitch and
+    16-deep slices, not its split groups' hand-over) against the JAX kernel
+    in interpret mode, on the same numpy inputs; 1e-5 relative: only the
+    order of the sums differs."""
+    dims = {**SHAPES, **EDGES}[shape]
+    args = _block(np.random.default_rng(3), *dims)
+    aj, at = _both(args, jnp.float32, torch.float32)
+    if shape == "f32_last_strip_1":    # several strips, the last of one row
+        assert dims[1] % cb.strip_rows(*dims[1:], torch.float32) == 1
+    got = cb.fused_identity_bottleneck_tiled_reference(*at)
+    want = np.asarray(jax_bottleneck(*aj))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return resolve_device("cuda")     # TF32 off for the plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    *[(2, *dims) for dims, _ in RN50_IDENTITY],
+    *[EDGES[name] for name in sorted(EDGES)]],
+    ids=[f"rn50_{dims[0]}" for dims, _ in RN50_IDENTITY] + sorted(EDGES))
+def test_kernel_matches_plain_fp32(card, shape):
+    """The fp32 kernel on the card against its plain version (cuDNN fp32,
+    TF32 off) at the four RN50 identity stages (batch 2) and the edges:
+    max |kernel - plain| over max |plain| under 1e-5, as only the order of
+    the fp32 sums differs."""
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+
+    def t(*dims, scale=0.1):
+        return torch.randn(*dims, generator=g, device=card) * scale
+
+    b, h, w, c, c_mid = shape
+    args = (t(b, h, w, c, scale=1.0), t(c, c_mid), t(c_mid, scale=0.01),
+            t(3, 3, c_mid, c_mid), t(c_mid, scale=0.01), t(c_mid, c),
+            t(c, scale=0.01))
+    launches = cb.fused_identity_bottleneck.launches
+    got = cb.fused_identity_bottleneck(*args)
+    torch.cuda.synchronize()
+    assert cb.fused_identity_bottleneck.launches == launches + 1
+    want = cb.fused_identity_bottleneck_reference(*args)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= 1e-5
 
 
 def test_edge_shapes_cover_the_strip_cases():
@@ -158,6 +211,23 @@ def test_edge_shapes_cover_the_strip_cases():
     assert cb.padded_channels(24) == 32 and cb.padded_channels(72) == 96
     assert cb.padded_channels(64) == 64 and cb.padded_channels(512) == 512
     assert EDGES["odd_c"][3] % 8 and EDGES["odd_c"][4] % 8
+    fp32, unit = torch.float32, cb.CHAN_UNIT_F32
+    assert cb.padded_channels(24, unit) == 32
+    assert cb.padded_channels(72, unit) == 80
+    assert cb.padded_channels(12, unit) == 16
+    for name, rows in (("f32_last_strip_1", 2), ("f32_strips_cm24", 3)):
+        b, h, w, c, c_mid = EDGES[name]
+        assert cb.strip_rows(h, w, c, c_mid, fp32) == rows and h % rows == 1
+    # conv1 of a middle strip at W = 80 covers 4 x 80 rows: two chunks
+    assert 4 * EDGES["f32_last_strip_1"][2] > cb.ROWS_F32
+    # rows off 16 bytes in fp32: C (x, w3) or Cm (w1, w2) not a multiple of 4
+    assert EDGES["f32_strips_cm24"][3] % 4 and EDGES["odd_c"][3] % 4
+    assert EDGES["f32_cm6"][4] % 4 and not EDGES["f32_cm6"][3] % 4
+    # an image smaller than a strip: a taller one would still fit
+    for name in ("one_strip", "w11_cm24", "cm72_w9"):
+        b, h, w, c, c_mid = EDGES[name]
+        assert cb.strip_rows(h, w, c, c_mid, fp32) == h
+        assert cb.strip_rows(h + 1, w, c, c_mid, fp32) == h + 1
 
 
 def test_twin_refuses_what_the_gate_rejects():
@@ -180,17 +250,37 @@ def test_python_constants_equal_the_source():
 
     assert (const("kDepth"), const("kStages"), const("kChanUnit"),
             const("kPad")) == (cb.DEPTH, cb.STAGES, cb.CHAN_UNIT, cb.PAD)
-    assert const("kSmemMax") == cb.smem_budget(torch.bfloat16)
+    assert const("kSmemMax") == cb.SMEM_BUDGET
     ring = const("kStages") * const("kStageBytes")
-    stage_f32 = 4 * (const("kTileM") * const("kTilePitch")
-                     + const("kTileK") * const("kTileN"))
     for (h, w, c, c_mid), _ in RN50_IDENTITY:
         pixels = 9 * (w + 2) + 7 * w
         assert cb.smem_bytes(w, c_mid, 7, 2) == ring + 2 * (
             cb.padded_channels(c_mid) + const("kPad")) * pixels
         assert 2 * (c_mid + const("kPad")) * 9 * (w + 2) >= const(
             "kStagingBytes")
-        assert cb.smem_bytes(w, c_mid, 7, 4) == stage_f32 + 4 * c_mid * pixels
+    # fp32: smem_bytes_f32 of the source, a weight ring, h1 and the larger
+    # of h2 and conv1's x ring
+    assert (const("kDepthF"), const("kChanUnitF"), const("kPadF"),
+            const("kRingColsF"), const("kRowsF")) == (
+        cb.DEPTH_F32, cb.CHAN_UNIT_F32, cb.PAD_F32, cb.RING_COLS_F32,
+        cb.ROWS_F32)
+    w_ring = 4 * const("kStages") * const("kWStageF")
+    x_ring = 4 * const("kStages") * const("kXStageF")
+    assert w_ring == cb.STAGES * cb._STAGE_BYTES_F32
+    assert x_ring == cb._X_RING_BYTES_F32
+    assert const("kAPitchF") % 4 == 0 and const("kPadF") % 4 == 0
+    assert "smem_bytes_f32(W, Cm, R)" in text
+    for (h, w, c, c_mid), _ in RN50_IDENTITY + [((5, 80, 16, 72), 0),
+                                                ((5, 7, 30, 12), 0)]:
+        pitch = cb.padded_channels(c_mid, const("kChanUnitF")) + const("kPadF")
+        for rows in (1, 4, 7):
+            assert cb.smem_bytes(w, c_mid, rows, 4) == w_ring + 4 * (
+                pitch * (rows + 2) * (w + 2)) + max(4 * pitch * rows * w,
+                                                    x_ring)
+    # 8 warps, 64 outputs (8 x 8) a thread: tiles of 256 x 64 to 64 x 256
+    assert const("kThreads") == 8 * 32
+    assert const("kRowsF") * 64 == const("kThreads") * 64 == 64 * const(
+        "kRingColsF")
     # a stage takes the widest of the three warp layouts' slices
     for wm in (1, 2, 4):
         assert 2 * (64 * wm * (cb.DEPTH + cb.PAD)

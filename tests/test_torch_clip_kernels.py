@@ -128,13 +128,9 @@ def test_bottleneck_matches_plain(card, dtype, shape):
     g = torch.Generator(device=card).manual_seed(sum(shape))
     args = _block(g, *shape, dtype, card)
     launches = cb.fused_identity_bottleneck.launches
-    if not cb.fused_bottleneck_supported(*shape[1:], dtype):
-        # [5, 100, 16] / 72 fp32: two rows are over the fp32 kernel's budget
-        assert dtype == torch.float32 and shape[2] == 100
-        with pytest.raises(ValueError, match="fused_bottleneck_supported"):
-            cb.fused_identity_bottleneck(*args)
-        assert cb.fused_identity_bottleneck.launches == launches
-        return
+    # the gate takes every shape here in both dtypes (fp32's [5, 100, 16] /
+    # 72 in strips of one row)
+    assert cb.fused_bottleneck_supported(*shape[1:], dtype)
     got = cb.fused_identity_bottleneck(*args)
     torch.cuda.synchronize()
     assert cb.fused_identity_bottleneck.launches == launches + 1
@@ -142,3 +138,17 @@ def test_bottleneck_matches_plain(card, dtype, shape):
     assert got.dtype == dtype and got.shape == want.shape
     assert _rel(got, want) <= LIMIT[dtype]
     assert np.isfinite(got.float().cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_bottleneck_raises_for_a_refused_shape(card, dtype):
+    """[224, 224, 8] / 512: not one row of h1 and h2 fits the budget. On
+    the card the wrapper raises without a launch; it has no fallback."""
+    g = torch.Generator(device=card).manual_seed(0)
+    args = _block(g, 1, 224, 224, 8, 512, dtype, card)
+    assert not cb.fused_bottleneck_supported(224, 224, 8, 512, dtype)
+    launches = cb.fused_identity_bottleneck.launches
+    with pytest.raises(ValueError, match="fused_bottleneck_supported"):
+        cb.fused_identity_bottleneck(*args)
+    assert cb.fused_identity_bottleneck.launches == launches

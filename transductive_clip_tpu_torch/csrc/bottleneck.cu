@@ -21,7 +21,7 @@
 // Design. The TPU instance holds one whole image in VMEM. Here layer1's
 // zero-padded hidden block alone is [58, 58, 64] bf16 = 420 KB, over a
 // block's 227 KB of shared memory. So one block (512 threads in bf16, 256 in
-// fp32) owns an
+// fp32; one block an SM) owns an
 // (image, strip of R output rows), h1 and h2 never leave shared memory, and
 // the three convolutions are three products pixels x input channels times
 // input x output channels:
@@ -82,10 +82,48 @@
 //   build for rows off 16 bytes), no spills;
 //   shared memory 223,296 / 202,016 / 203,040 / 210,464 bytes at layer1-4.
 //
-//   fp32 (bottleneck_f32_kernel): the first kernel, unchanged: FFMA (TF32
-//   stays off) in 64 x 64 output tiles, 16 deep, a 4 x 4 register tile a
-//   thread, the A slice and the weight slice staged in shared memory; strips
-//   of the largest R within 113 KB (two blocks an SM).
+//   fp32 (bottleneck_f32_kernel): FFMA, TF32 stays off. Bound: 2 B H W
+//   (2 C Cm + 9 Cm^2) operations at 67 TFLOP/s, the same 0.4172 ms at every
+//   RN50 stage at batch 64; x, out and the weights are 0.41 GB at most
+//   (0.12 ms at 3.35 TB/s): bound by operations everywhere. 256 threads, an
+//   8 x 8 register tile a thread. A is read as float4 along the
+//   contraction where it lies: conv2's from h1 with the tap as the address
+//   offset (dh (W + 2) + dw) pitch (no im2col; one division a row and
+//   tile), conv3's from h2; conv1's x comes by 16-byte cp.async through a
+//   ring of three slices [rows][16 + 4] in h2's place (h2 is free until
+//   conv2). The channel pitch of h1 and h2 is Cm rounded up to 16 (a slice
+//   of conv2's contraction never straddles two taps; the new channels are
+//   zero) plus 4, so that the rows of a float4 read fall in different
+//   banks. The weights keep their [K][N] layout and come by 16-byte
+//   cp.async through a ring of three slices 16 deep, read as float4 across
+//   the tile; one barrier a slice, the copies of the slice two ahead
+//   started before the slice's FMAs, the ring running on across a
+//   product's tiles. Each product picks its own cut (TilingF): warps of
+//   32 x 64 outputs, the 8 of them over one tile of 64 to 256 rows, or in
+//   2 or 4 groups that split each slice's depth over a smaller tile (down
+//   to 32 rows) and hand their sums over in place (where the output goes:
+//   h1, h2 or out) at the tile's end; whichever pads least. Without the
+//   groups, layer4's products of 21 to 35 rows padded 64-row tiles by up
+//   to 60% and the stage ran 1.3 times slower. Shapes whose rows do not
+//   start on 16 bytes (C or Cm not a multiple of 4) are staged value by
+//   value into the same slices.
+//   What a block owns (strip_rows: the largest R within 227 KB, one block
+//   an SM, then evened over the image):
+//     layer1 [56, 56, 256] / 64:   R = 4, 14 strips; 205,248 bytes
+//     layer2 [28, 28, 512] / 128:  R = 4, 7 strips;  205,632 bytes
+//     layer3 [14, 14, 1024] / 256: R = 4, 4 strips (4, 4, 4, 2); 210,432
+//     layer4 [7, 7, 2048] / 512:   R = 4, 2 strips (4, 3); 222,048 bytes
+//   conv1 runs on 1.46, 1.43, 1.43 and 1.29 times the output rows; every
+//   block reads the three weight matrices from L2 once: 0.25, 0.50, 1.14
+//   and 2.28 GB a launch at batch 64 (layer1 to layer4).
+//   What holds it at ~3.7 times its bound (PERF.md; a reading of the
+//   design, not a profile): a 4-deep step of a warp is 16 LDS.128 for 256
+//   FMAs, and an LDS.128 delivers 512 bytes at the SM's 128 a cycle, so
+//   the shared-memory pipe is as busy as the FMA pipes, and with 8 warps an
+//   SM the tiles run at ~40% of the FMA rate. An 8 x 16 tile a thread (24
+//   LDS.128 for 512 FMAs) needed more than 255 registers and spilled: 1.2
+//   times slower.
+//   ptxas (-Xptxas -v, sm_90a): 233 registers at 256 threads, no spills.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 // -Xcompiler -fPIC, without --use_fast_math.
@@ -515,81 +553,276 @@ bottleneck_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
 // ------------------------------------------------------------------ fp32
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 16;
-constexpr int kTilePitch = kTileK + 1;
+constexpr int kDepthF = 16;      // depth of a slice of the contraction
+constexpr int kChanUnitF = 16;   // Cm is padded to a multiple of it in h1, h2
+constexpr int kPadF = 4;         // floats of padding a shared-memory row
+constexpr int kRingColsF = 256;  // the widest weight slice (64 x 256 tiles)
+constexpr int kRowsF = 256;      // the most rows of a tile (256 x 64 tiles)
+constexpr int kAPitchF = kDepthF + 4;          // a streamed x slice's row
+constexpr int kWStageF = kDepthF * kRingColsF;  // floats of a weight slice
+constexpr int kXStageF = kRowsF * kAPitchF;     // floats of an x slice
 
-// C[M, N] = A[M, K] . B[K, N] in 64 x 64 tiles; a_at(m, k) reads A (m < M,
-// k < K), B is row-major [K][N] in device memory, epi(m, n, sum) takes each
-// output. Every thread of the block must call it.
-template <typename AFn, typename Epi>
-__device__ void block_gemm_f32(int M, int N, int K, const AFn& a_at,
-                               const float* __restrict__ B, const Epi& epi,
-                               float* As, float* Bs) {
-  const int t = threadIdx.x;
-  const int tn = t & 15;   // output columns tn*4 .. tn*4+3
-  const int tm = t >> 4;   // output rows tm + 16 i
-  for (int n0 = 0; n0 < N; n0 += kTileN) {
-    for (int m0 = 0; m0 < M; m0 += kTileM) {
-      float acc[4][4];
+__host__ __device__ inline int padded_channels_f32(int c_mid) {
+  return (c_mid + kChanUnitF - 1) / kChanUnitF * kChanUnitF;
+}
+// bytes of shared memory for strips of R rows: the weight ring, h1
+// [R + 2][W + 2][pitch], and h2 [R W][pitch], whose place holds conv1's x
+// ring before h2 is written (pitch = padded Cm + kPadF)
+__host__ __device__ inline size_t smem_bytes_f32(int W, int Cm, int R) {
+  const size_t pitch = padded_channels_f32(Cm) + kPadF;
+  const size_t h2 = pitch * R * W, x_ring = (size_t)kStages * kXStageF;
+  return sizeof(float) * ((size_t)kStages * kWStageF
+                          + pitch * (R + 2) * (W + 2)
+                          + (h2 > x_ring ? h2 : x_ring));
+}
+
+// 4 values from src into dst: one 16-byte cp.async when the rows are
+// aligned, else value by value; the first `live` of them, zeros after
+__device__ __forceinline__ void stage4(float* dst, const float* src, int live,
+                                       bool aligned) {
+  if (aligned) {
+    if (live > 0)
+      cp_async16(dst, src);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += kTileK) {
-        for (int e = t; e < kTileM * kTileK; e += kThreads) {
-          const int mm = e >> 4, kk = e & 15;
-          const int m = m0 + mm, k = k0 + kk;
-          As[mm * kTilePitch + kk] = (m < M && k < K) ? a_at(m, k) : 0.f;
+  for (int i = 0; i < 4; ++i) dst[i] = i < live ? src[i] : 0.f;
+}
+
+// what an fp32 product reads and where: see block_gemm_f32
+struct GemmF {
+  int M;           // output rows
+  int n_out;       // output columns to compute
+  int groups;      // groups of slices of the contraction (conv2: the 9 taps)
+  int per_group;   // slices a group
+  const float* B;  // weights [rows][ldb] in device memory
+  int ldb;         // their row length = their live columns
+  const float* A;  // streamed A [M][lda] in device memory, or null: in place
+  int lda;         // its row length = its live columns
+  bool aligned;    // every row of A and B starts on 16 bytes
+};
+
+// how an fp32 product is cut: output tiles of rows x bn; the 8 warps form
+// `split` groups (1, 2 or 4), each a wm x wn grid of warps of 32 x 64
+// outputs (8 x 8 a thread) over the whole tile, that takes its own
+// 16 / split of every slice's depth. Of the cuts whose tile fits the rings
+// (at most kRowsF rows and kRingColsF columns), the one with the least
+// padded work, (K + 16 (split - 1)) for every output of every tile: a
+// split adds one pass over the tile per group at its end (ties: the
+// smaller split, more rows). A split serves the products of few rows:
+// layer4's 21- to 35-row strips take 32-row tiles split 2 ways, not 64-row
+// tiles half empty
+struct TilingF {
+  int split, wm, wn, rows, bn, chunks, tiles;
+  __device__ __forceinline__ TilingF(int M, int N, int K) {
+    long long best = 0x7fffffffffffffffLL;
+    split = 1, wm = 8, wn = 1;
+    for (int s = 1; s <= 4; s *= 2)
+      for (int m = 8; m >= 1; m /= 2) {
+        const int groupw = 8 / s;
+        if (groupw % m) continue;
+        const int r = 32 * m, b = 64 * (groupw / m);
+        if (r > kRowsF || b > kRingColsF) continue;
+        const long long cost = (long long)((M + r - 1) / r)
+            * ((N + b - 1) / b) * r * b * (K + 16 * (s - 1));
+        if (cost < best) {
+          best = cost;
+          split = s, wm = m, wn = groupw / m;
         }
-        for (int e = t; e < kTileK * kTileN; e += kThreads) {
-          const int kk = e >> 6, nn = e & 63;
-          const int k = k0 + kk, n = n0 + nn;
-          Bs[e] = (k < K && n < N) ? B[(size_t)k * N + n] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kTileK; ++kk) {
-          float a[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            a[i] = As[(tm + 16 * i) * kTilePitch + kk];
-          const float4 b =
-              *reinterpret_cast<const float4*>(Bs + kk * kTileN + tn * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
-            acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
-            acc[i][2] = fmaf(a[i], b.z, acc[i][2]);
-            acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
-          }
-        }
-        __syncthreads();
       }
+    rows = 32 * wm;
+    bn = 64 * wn;
+    chunks = (M + rows - 1) / rows;
+    tiles = (N + bn - 1) / bn;
+  }
+};
+
+// where an fp32 product's walk stands: chunk of rows, tile of columns,
+// group and slice of the contraction, innermost last; a block starts at
+// column tile `first`, so that the blocks in flight do not all ask L2 for
+// the same weight slice at once
+struct WalkF {
+  int ch = 0, nt, g = 0, j = 0, left;
+  __device__ __forceinline__ WalkF(int first, int tiles)
+      : nt(first), left(tiles) {}
+  __device__ __forceinline__ void step(int tiles, const GemmF& s) {
+    if (++j < s.per_group) return;
+    j = 0;
+    if (++g < s.groups) return;
+    g = 0;
+    if (++nt == tiles) nt = 0;
+    if (--left > 0) return;
+    left = tiles;
+    ++ch;
+  }
+};
+
+// C[M, n_out] = A . B in FFMA, cut as TilingF picks. Slice (g, j) of B is
+// rows b_row0(g, j) .. + b_live(j) of s.B (the rest of the 16 zero), and
+// comes through the weight ring by 16-byte cp.async. A is either streamed
+// from s.A through x_ring (columns 16 (g per_group + j) ..), or read in
+// place from shared memory: a_base(g, j) + row_off(m) is row m's first
+// value of the slice. A thread owns rows wm 32 + ty + 4 i (i < 8) and
+// columns wn 64 + tx 4 + {0..3} and + 32 of a tile; per 4-deep step it
+// reads A as 8 float4 along the contraction (4 rows a warp-wide read, each
+// shared by 8 lanes) and the weights as 8 float4 across the tile, for 256
+// FMAs. At a tile's end the groups hand their sums over in order: epi(m,
+// n, 4 sums of columns n .. n + 3, first, last) for n < n_out (n a
+// multiple of 4) is called by group 0 with first, then by each later group
+// after a barrier, the last with last: the first stores its sums where the
+// output goes, the others add theirs to what is there, and the last
+// finishes the output. Every thread of the block must call it; it ends
+// with the ring drained but without a barrier.
+template <typename BRow0, typename BLive, typename ABase, typename RowOff,
+          typename Epi>
+__device__ __forceinline__ void block_gemm_f32(
+    const GemmF& s, float* w_ring, float* x_ring, const BRow0& b_row0,
+    const BLive& b_live, const ABase& a_base, const RowOff& row_off,
+    const Epi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = lane >> 3, tx = lane & 7;
+  const TilingF tl(s.M, s.n_out, s.groups * s.per_group * kDepthF);
+  const int groupw = 8 / tl.split, grp = warp / groupw, wg = warp % groupw;
+  const int wm = wg % tl.wm, wn = wg / tl.wm;
+  const int kq = kDepthF / tl.split, k_lo = grp * kq;
+  const int total = tl.chunks * tl.tiles * s.groups * s.per_group;
+  const bool streamed = s.A != nullptr;
+  // 16-byte pieces of a slice: kDepthF x bn weights are 4 bn pieces, rows x
+  // kDepthF of x are 4 rows; at most 1024 of each, 4 a thread
+  const int bsh = __ffs(tl.bn) - 3;           // log2 of the pieces a row
+  auto fill = [&](const WalkF& w, int stage) {
+    float* bs = w_ring + stage * kWStageF;
+    const int live_rows = b_live(w.j), col0 = w.nt * tl.bn;
+    const float* bsrc = s.B + (size_t)b_row0(w.g, w.j) * s.ldb + col0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + tm + 16 * i;
-        if (m >= M) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (e >= kDepthF << bsh) break;
+      const int r = e >> bsh, c = (e & ((1 << bsh) - 1)) << 2;
+      stage4(bs + r * tl.bn + c, bsrc + (size_t)r * s.ldb + c,
+             r < live_rows ? min(4, s.ldb - col0 - c) : 0, s.aligned);
+    }
+    if (!streamed) return;
+    float* as = x_ring + stage * kXStageF;
+    const int k0 = (w.g * s.per_group + w.j) * kDepthF, m0 = w.ch * tl.rows;
+    const float* asrc = s.A + (size_t)m0 * s.lda + k0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + tn * 4 + j;
-          if (n < N) epi(m, n, acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (e >= tl.rows * (kDepthF / 4)) break;
+      const int r = e >> 2, c = (e & 3) << 2;
+      stage4(as + r * kAPitchF + c, asrc + (size_t)r * s.lda + c,
+             m0 + r < s.M ? min(4, s.lda - k0 - c) : 0, s.aligned);
+    }
+  };
+
+  float acc[8][8];
+  int arow[8];
+  WalkF ahead(blockIdx.x % tl.tiles, tl.tiles),
+      here(blockIdx.x % tl.tiles, tl.tiles);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) {
+      fill(ahead, i);
+      ahead.step(tl.tiles, s);
+    }
+    cp_async_commit();
+  }
+  for (int item = 0; item < total; ++item) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    // the slice two ahead goes into the stage every thread is done with
+    if (item + kStages - 1 < total) {
+      fill(ahead, (item + kStages - 1) % kStages);
+      ahead.step(tl.tiles, s);
+    }
+    cp_async_commit();
+    const int stage = item % kStages;
+    if (here.g == 0 && here.j == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+        const int r = wm * 32 + ty + 4 * i;
+        arow[i] = streamed ? r * kAPitchF
+                           : row_off(min(here.ch * tl.rows + r, s.M - 1));
+      }
+    }
+    const float* ap = (streamed ? x_ring + stage * kXStageF
+                                : a_base(here.g, here.j)) + k_lo;
+    const float* bp =
+        w_ring + stage * kWStageF + k_lo * tl.bn + wn * 64 + tx * 4;
+    for (int kk = 0; kk < kq; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ap + arow[i] + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(bp + (kk + q) * tl.bn);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(bp + (kk + q) * tl.bn + 32);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float v = q == 0 ? a[i].x : q == 1 ? a[i].y
+                        : q == 2 ? a[i].z : a[i].w;
+          acc[i][0] = fmaf(v, b0.x, acc[i][0]);
+          acc[i][1] = fmaf(v, b0.y, acc[i][1]);
+          acc[i][2] = fmaf(v, b0.z, acc[i][2]);
+          acc[i][3] = fmaf(v, b0.w, acc[i][3]);
+          acc[i][4] = fmaf(v, b1.x, acc[i][4]);
+          acc[i][5] = fmaf(v, b1.y, acc[i][5]);
+          acc[i][6] = fmaf(v, b1.z, acc[i][6]);
+          acc[i][7] = fmaf(v, b1.w, acc[i][7]);
         }
       }
     }
+    if (here.g == s.groups - 1 && here.j == s.per_group - 1) {
+      for (int p = 0; p < tl.split; ++p) {
+        if (p > 0) __syncthreads();
+        if (grp != p) continue;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int m = here.ch * tl.rows + wm * 32 + ty + 4 * i;
+          if (m >= s.M) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = here.nt * tl.bn + wn * 64 + tx * 4 + 32 * h;
+            if (n < s.n_out)
+              epi(m, n, make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                    acc[i][4 * h + 2], acc[i][4 * h + 3]),
+                  p == 0, p == tl.split - 1);
+          }
+        }
+      }
+    }
+    here.step(tl.tiles, s);
   }
 }
 
-// bytes of shared memory for strips of R rows
-__host__ __device__ inline size_t smem_bytes_f32(int W, int Cm, int R) {
-  return sizeof(float) * (kTileM * kTilePitch + kTileK * kTileN
-                          + (size_t)(R + 2) * (W + 2) * Cm
-                          + (size_t)R * W * Cm);
+// the hand-over of a split product's sums where they go (see block_gemm_f32)
+__device__ __forceinline__ float4 gather4(float* d, float4 v, bool first) {
+  if (first) return v;
+  const float4 o = *reinterpret_cast<const float4*>(d);
+  return make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
 }
 
-// grid (B * ceil(H / R))
-__global__ void __launch_bounds__(kThreads)
+// relu(v + bias) for the columns below Cm, 0 for the padded ones
+__device__ __forceinline__ float4 bias_relu(float4 v, const float* bias,
+                                            int n, int Cm) {
+  return make_float4(n < Cm ? fmaxf(v.x + bias[n], 0.f) : 0.f,
+                     n + 1 < Cm ? fmaxf(v.y + bias[n + 1], 0.f) : 0.f,
+                     n + 2 < Cm ? fmaxf(v.z + bias[n + 2], 0.f) : 0.f,
+                     n + 3 < Cm ? fmaxf(v.w + bias[n + 3], 0.f) : 0.f);
+}
+
+// grid (B * ceil(H / R)), one block an SM; shared memory: the weight ring,
+// h1 [R + 2][W + 2][pitch] and h2 [R W][pitch] (conv1's x ring before it),
+// pitch = Cm padded to kChanUnitF, + kPadF
+__global__ void __launch_bounds__(kThreads, 1)
 bottleneck_f32_kernel(const float* __restrict__ x,
                       const float* __restrict__ w1,
                       const float* __restrict__ b1,
@@ -599,66 +832,104 @@ bottleneck_f32_kernel(const float* __restrict__ x,
                       const float* __restrict__ b3, float* __restrict__ out,
                       int H, int W, int C, int Cm, int R) {
   extern __shared__ uint4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + kTileM * kTilePitch;   // 1088 floats: 16-byte aligned
-  float* h1 = Bs + kTileK * kTileN;
-  const int Wp = W + 2;
-  float* h2 = h1 + (size_t)(R + 2) * Wp * Cm;
+  float* w_ring = reinterpret_cast<float*>(smem4);
+  const int cmp = padded_channels_f32(Cm), pitch = cmp + kPadF, Wp = W + 2;
+  float* h1 = w_ring + kStages * kWStageF;
+  float* h2 = h1 + (size_t)(R + 2) * Wp * pitch;
   const int strips = (H + R - 1) / R;
   const int img = blockIdx.x / strips;
   const int y0 = (blockIdx.x % strips) * R;
   const int rows = min(R, H - y0);
   const float* xi = x + (size_t)img * H * W * C;
   float* oi = out + (size_t)img * H * W * C;
+  const bool aligned = C % 4 == 0 && Cm % 4 == 0;
+  const int per_tap = cmp / kDepthF;   // slices of a tap, of conv3
+  auto no_base = [](int, int) -> const float* { return nullptr; };
+  auto no_row = [](int) { return 0; };
 
-  // the zero columns left and right of h1
-  for (int e = threadIdx.x; e < (rows + 2) * 2 * Cm; e += kThreads) {
-    const int hr = e / (2 * Cm), rem = e % (2 * Cm);
-    const int col = rem < Cm ? 0 : W + 1;
-    h1[((size_t)hr * Wp + col) * Cm + rem % Cm] = 0.f;
+  // conv2's padding: all of h1 is zero before conv1 fills the image's part
+  {
+    float4* z = reinterpret_cast<float4*>(h1);
+    const int n16 = (rows + 2) * Wp * pitch / 4;
+    for (int e = threadIdx.x; e < n16; e += kThreads)
+      z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-
-  // 1. conv1 + b1, relu, over rows y0 - 1 .. y0 + rows
-  block_gemm_f32(
-      (rows + 2) * W, Cm, C,
-      [&](int m, int k) -> float {
-        const int hr = m / W, col = m - hr * W, y = y0 - 1 + hr;
-        return (y >= 0 && y < H) ? xi[((size_t)y * W + col) * C + k] : 0.f;
-      },
-      w1,
-      [&](int m, int n, float s) {
-        const int hr = m / W, col = m - hr * W, y = y0 - 1 + hr;
-        h1[((size_t)hr * Wp + col + 1) * Cm + n] =
-            (y >= 0 && y < H) ? fmaxf(s + b1[n], 0.f) : 0.f;
-      },
-      As, Bs);
   __syncthreads();
 
-  // 2. conv2 (3 x 3, the 9 taps tap-major) + b2, relu
-  block_gemm_f32(
-      rows * W, Cm, 9 * Cm,
-      [&](int m, int k) -> float {
-        const int r = m / W, col = m - r * W;
-        const int tap = k / Cm, ci = k - tap * Cm;
-        const int dh = tap / 3, dw = tap - dh * 3;
-        return h1[((size_t)(r + dh) * Wp + col + dw) * Cm + ci];
-      },
-      w2,
-      [&](int m, int n, float s) {
-        h2[(size_t)m * Cm + n] = fmaxf(s + b2[n], 0.f);
-      },
-      As, Bs);
+  // 1. conv1 + b1, relu, over the image's rows among y0 - 1 .. y0 + rows;
+  // x comes through the ring in h2's place
+  const int y_lo = max(y0 - 1, 0), y_hi = min(y0 + rows, H - 1);
+  {
+    GemmF s{(y_hi - y_lo + 1) * W, cmp, 1, (C + kDepthF - 1) / kDepthF, w1,
+            Cm, xi + (size_t)y_lo * W * C, C, aligned};
+    const int hr0 = y_lo - (y0 - 1);
+    block_gemm_f32(
+        s, w_ring, h2, [&](int, int j) { return j * kDepthF; },
+        [&](int j) { return C - j * kDepthF; }, no_base, no_row,
+        [&](int m, int n, float4 v, bool first, bool last) {
+          float* d = h1 + ((hr0 + m / W) * Wp + m % W + 1) * pitch + n;
+          v = gather4(d, v, first);
+          *reinterpret_cast<float4*>(d) = last ? bias_relu(v, b1, n, Cm) : v;
+        });
+  }
   __syncthreads();
 
-  // 3. conv3, + b3 and + x, relu
-  block_gemm_f32(
-      rows * W, C, Cm,
-      [&](int m, int k) -> float { return h2[(size_t)m * Cm + k]; }, w3,
-      [&](int m, int n, float s) {
-        const size_t off = ((size_t)y0 * W + m) * C + n;
-        oi[off] = fmaxf(s + b3[n] + xi[off], 0.f);
-      },
-      As, Bs);
+  // 2. conv2 (3 x 3, the 9 taps tap-major) + b2, relu; A is h1 in place, a
+  // tap the offset (dh (W + 2) + dw) pitch from the pixel's own row
+  {
+    GemmF s{rows * W, cmp, 9, per_tap, w2, Cm, nullptr, 0, aligned};
+    block_gemm_f32(
+        s, w_ring, nullptr, [&](int g, int j) { return g * Cm + j * kDepthF; },
+        [&](int j) { return Cm - j * kDepthF; },
+        [&](int g, int j) -> const float* {
+          return h1 + ((g / 3) * Wp + g % 3) * pitch + j * kDepthF;
+        },
+        [&](int m) { return ((m / W) * Wp + m % W) * pitch; },
+        [&](int m, int n, float4 v, bool first, bool last) {
+          float* d = h2 + m * pitch + n;
+          v = gather4(d, v, first);
+          *reinterpret_cast<float4*>(d) = last ? bias_relu(v, b2, n, Cm) : v;
+        });
+  }
+  __syncthreads();
+
+  // 3. conv3, + b3, + x, relu, straight to out (16 bytes a lane when the
+  // rows start on 16 bytes); a split product hands its sums over in out
+  {
+    GemmF s{rows * W, C, 1, per_tap, w3, C, nullptr, 0, aligned};
+    block_gemm_f32(
+        s, w_ring, nullptr, [&](int, int j) { return j * kDepthF; },
+        [&](int j) { return Cm - j * kDepthF; },
+        [&](int, int j) -> const float* { return h2 + j * kDepthF; },
+        [&](int m) { return m * pitch; },
+        [&](int m, int n, float4 v, bool first, bool last) {
+          const size_t off = ((size_t)y0 * W + m) * C + n;
+          if (aligned) {
+            float4* d = reinterpret_cast<float4*>(oi + off);
+            if (!first) {
+              const float4 o = *d;
+              v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+            }
+            if (last) {
+              const float4 r = *reinterpret_cast<const float4*>(xi + off);
+              v = make_float4(fmaxf(v.x + b3[n] + r.x, 0.f),
+                              fmaxf(v.y + b3[n + 1] + r.y, 0.f),
+                              fmaxf(v.z + b3[n + 2] + r.z, 0.f),
+                              fmaxf(v.w + b3[n + 3] + r.w, 0.f));
+            }
+            *d = v;
+            return;
+          }
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (n + q < C) {
+              const float t = first ? vs[q] : oi[off + q] + vs[q];
+              oi[off + q] = last ? fmaxf(t + b3[n + q] + xi[off + q], 0.f)
+                                 : t;
+            }
+        });
+  }
 }
 
 // ------------------------------------------------------------- launches

@@ -12,22 +12,24 @@ BatchNorms folded into the biases. Operands in x's dtype, fp32 sums; h1, h2
 and the conv3 output are rounded to x's dtype, and ``+ b3`` and ``+ x`` are
 done in x's dtype (``pallas_bottleneck.py:104-119``).
 
-In bf16 the three convolutions run on the tensor cores, with conv2's and
-conv3's input read where it lies in shared memory; fp32 keeps FFMA (TF32
-stays off).
+In bf16 the three convolutions run on the tensor cores, in fp32 on FFMA
+(TF32 stays off) with an 8 x 8 register tile a thread; in both, conv2's and
+conv3's input is read where it lies in shared memory, and the weights come
+through a ring of ``cp.async`` slices.
 
 The support gate :func:`fused_bottleneck_supported` is this card's own: a
 block owns a strip of output rows of one image (:func:`strip_rows`), and
-the gate accepts a block when a strip of at least one row fits the dtype's
-:func:`smem_budget`. It accepts all 12 RN50 identity blocks at bf16 and at
+the gate accepts a block when a strip of at least one row fits
+``SMEM_BUDGET``. It accepts all 12 RN50 identity blocks at bf16 and at
 fp32; blocks it rejects take the plain graph (``models/clip/resnet.py``).
 
 The wrapper takes its plain torch version for tensors on the CPU, and only
 then; for CUDA tensors it launches the kernel or raises.
 ``fused_identity_bottleneck.launches`` counts the launches.
-:func:`fused_identity_bottleneck_tiled_reference` repeats the bf16 kernel's
-own order of operations in torch ops (what a block owns, the halo rows, the
-padded pitch, the tap-major contraction slice by slice), for the CPU tests.
+:func:`fused_identity_bottleneck_tiled_reference` repeats the kernels'
+tiling in torch ops (what a block owns, the halo rows, the padded pitch, the
+tap-major contraction slice by slice), for the CPU tests; the order of the
+sums inside a slice, and the fp32 kernel's split groups, it does not model.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ from . import kernel_build
 
 SOURCE = "bottleneck.cu"
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# csrc, fp32: the staged A slice [64][17] and weight slice [16][64]
-_STAGE_BYTES_F32 = 4 * (64 * 17 + 16 * 64)
 # csrc, bf16: a ring of STAGES slices DEPTH deep, each an A slice of up to
 # 256 rows (pitch DEPTH + PAD) and a weight slice of 64 columns (the wider
 # weight slices of shorter chunks take less); h1 and h2 rows of Cm rounded
@@ -52,9 +52,15 @@ DEPTH, STAGES, CHAN_UNIT, PAD = 32, 3, 32, 8
 _RING_BYTES_BF16 = STAGES * 2 * (256 * (DEPTH + PAD) + DEPTH * (64 + PAD))
 # conv3's output tile passes through h1's place on its way out
 _STAGING_BYTES_BF16 = 2 * 256 * (64 + PAD)
-# a block's shared memory: fp32 two blocks an SM (2 x (113 KB + 1 KB
-# reserved) of its 228 KB), bf16 one block an SM
-_SMEM_BUDGET = {torch.float32: 113 * 1024, torch.bfloat16: 227 * 1024}
+# csrc, fp32: a ring of STAGES weight slices DEPTH_F32 deep and up to
+# RING_COLS_F32 wide; conv1's x comes through a ring of STAGES slices of up to
+# ROWS_F32 rows (pitch DEPTH_F32 + 4) in h2's place; h1 and h2 rows of Cm
+# rounded up to CHAN_UNIT_F32, plus PAD_F32
+DEPTH_F32, CHAN_UNIT_F32, PAD_F32, RING_COLS_F32, ROWS_F32 = 16, 16, 4, 256, 256
+_STAGE_BYTES_F32 = 4 * DEPTH_F32 * RING_COLS_F32
+_X_RING_BYTES_F32 = STAGES * 4 * ROWS_F32 * (DEPTH_F32 + 4)
+# a block's shared memory (kSmemMax): one block an SM in both dtypes
+SMEM_BUDGET = 227 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,46 +76,45 @@ def _library():
     return lib
 
 
-def smem_budget(dtype) -> int:
-    """The shared memory a block of the dtype's kernel may take."""
-    return _SMEM_BUDGET[dtype]
-
-
-def padded_channels(c_mid: int) -> int:
-    """Cm as the bf16 kernel lays it in h1 and h2: rounded up to CHAN_UNIT,
-    so that a slice of conv2's contraction lies inside one tap."""
-    return -(-c_mid // CHAN_UNIT) * CHAN_UNIT
+def padded_channels(c_mid: int, unit: int = CHAN_UNIT) -> int:
+    """Cm as a kernel lays it in h1 and h2: rounded up to ``unit``
+    (CHAN_UNIT in bf16, CHAN_UNIT_F32 in fp32), so that a slice of conv2's
+    contraction lies inside one tap."""
+    return -(-c_mid // unit) * unit
 
 
 def smem_bytes(w: int, c_mid: int, rows: int, item: int) -> int:
     """A block's shared memory for strips of ``rows`` output rows, by the
-    item size of x's dtype: the staged slices, h1 [rows + 2, w + 2, pitch]
-    and h2 [rows w, pitch]; pitch is Cm in fp32, padded Cm + PAD in bf16,
-    where h1 is also at least the tile conv3's output passes through."""
+    item size of x's dtype: the ring, h1 [rows + 2, w + 2, pitch] and h2
+    [rows w, pitch], pitch the padded Cm plus the padding of a row. bf16:
+    h1 is also at least the tile conv3's output passes through. fp32: h2's
+    place is also at least conv1's x ring."""
     h1, h2 = (rows + 2) * (w + 2), rows * w
     if item == 2:
         pitch = 2 * (padded_channels(c_mid) + PAD)
         return (_RING_BYTES_BF16 + max(pitch * h1, _STAGING_BYTES_BF16)
                 + pitch * h2)
-    return _STAGE_BYTES_F32 + 4 * c_mid * (h1 + h2)
+    pitch = 4 * (padded_channels(c_mid, CHAN_UNIT_F32) + PAD_F32)
+    return (STAGES * _STAGE_BYTES_F32 + pitch * h1
+            + max(pitch * h2, _X_RING_BYTES_F32))
 
 
 def strip_rows(h: int, w: int, c: int, c_mid: int, dtype) -> int:
-    """Output rows a block owns, or 0 when not even one row fits the
-    dtype's budget (or the dtype is not a kernel's). fp32: the largest
-    strip that fits. bf16: the largest strip that fits sets the number of
-    strips of an image, and the rows are then spread evenly over them (28
-    rows: 4 strips of 7, not 8 + 8 + 8 + 4), so that the blocks take about
-    the same time and fewer strips need a second chunk of rows."""
+    """Output rows a block owns, or 0 when not even one row fits the budget
+    (or the dtype is not a kernel's). The largest strip that fits sets the
+    number of strips of an image, and the rows are then spread evenly over
+    them (28 rows: 4 strips of 7, not 8 + 8 + 8 + 4), so that
+    the blocks take about the same time and fewer strips need a second
+    chunk of rows."""
     if dtype not in KERNEL_DTYPES:
         return 0
     item = torch.empty((), dtype=dtype).element_size()
     best = 0
     for rows in range(1, h + 1):
-        if smem_bytes(w, c_mid, rows, item) <= smem_budget(dtype):
+        if smem_bytes(w, c_mid, rows, item) <= SMEM_BUDGET:
             best = rows
-    if best == 0 or dtype == torch.float32:
-        return best
+    if best == 0:
+        return 0
     strips = -(-h // best)
     return -(-h // strips)
 
@@ -202,14 +207,21 @@ fused_identity_bottleneck.launches = 0
 
 
 def fused_identity_bottleneck_tiled_reference(x, w1, b1, w2, b2, w3, b3):
-    """K5 in the bf16 kernel's own order of operations, in torch ops: an
-    (image, strip of :func:`strip_rows` rows) at a time; conv1 over the
-    strip's rows and the halo rows inside the image into a zeroed h1
-    [rows + 2, W + 2, padded Cm + PAD]; conv2 as nine taps, each a shifted
-    view of h1, the contraction tap-major in slices of DEPTH channels;
-    conv3 over h2 in the same slices; the roundings and the adds of the
-    formula in x's dtype. Shapes and layout as
-    :func:`fused_identity_bottleneck`."""
+    """K5 in the kernels' tiling, in torch ops: an (image, strip of
+    :func:`strip_rows` rows) at a time; conv1 over the strip's rows and the
+    halo rows inside the image into a zeroed h1 [rows + 2, W + 2, padded
+    Cm + pad]; conv2 as nine taps, each a shifted view of h1, the
+    contraction tap-major in slices (DEPTH deep in bf16, DEPTH_F32 in
+    fp32); conv3 over h2 in the same slices; the roundings and the adds of
+    the formula in x's dtype. Shapes and layout as
+    :func:`fused_identity_bottleneck`.
+
+    Each slice is one matmul, so the order of the sums inside a slice is
+    torch's. Nor is the fp32 kernel's split modelled: where its tiling cuts
+    the 8 warps into 2 or 4 groups (most products at RN50's layer3-4), each
+    group sums its share of every slice's depth and the groups hand their
+    partial sums over in place at the tile's end. Only the ``cuda`` tests,
+    kernel against plain version, cover that hand-over."""
     dt = x.dtype
     bsz, h, w, c = x.shape
     c_mid = w1.shape[1]
@@ -217,7 +229,11 @@ def fused_identity_bottleneck_tiled_reference(x, w1, b1, w2, b2, w3, b3):
     if rows == 0:
         raise ValueError(f"[{h}, {w}, {c}] / {c_mid} {dt} does not fit the "
                          "kernel (fused_bottleneck_supported)")
-    cp = padded_channels(c_mid)
+    if dt == torch.float32:
+        depth, pad = DEPTH_F32, PAD_F32
+        cp = padded_channels(c_mid, CHAN_UNIT_F32)
+    else:
+        depth, pad, cp = DEPTH, PAD, padded_channels(c_mid)
     w1p = torch.zeros(c, cp)
     w1p[:, :c_mid] = w1.float()
     w2p = torch.zeros(9, cp, cp)
@@ -229,15 +245,15 @@ def fused_identity_bottleneck_tiled_reference(x, w1, b1, w2, b2, w3, b3):
 
     def product(a, wp):
         acc = torch.zeros(*a.shape[:-1], wp.shape[1])
-        for k0 in range(0, a.shape[-1], DEPTH):
-            acc += a[..., k0:k0 + DEPTH].float() @ wp[k0:k0 + DEPTH]
+        for k0 in range(0, a.shape[-1], depth):
+            acc += a[..., k0:k0 + depth].float() @ wp[k0:k0 + depth]
         return acc
 
     out = torch.empty_like(x)
     for y0 in range(0, h, rows):
         r = min(rows, h - y0)
         y_lo, y_hi = max(y0 - 1, 0), min(y0 + r, h - 1)
-        h1 = torch.zeros(bsz, rows + 2, w + 2, cp + PAD, dtype=dt)
+        h1 = torch.zeros(bsz, rows + 2, w + 2, cp + pad, dtype=dt)
         v = F.relu(product(x[:, y_lo:y_hi + 1], w1p) + b1p)
         hr0 = y_lo - (y0 - 1)
         h1[:, hr0:hr0 + y_hi - y_lo + 1, 1:w + 1, :cp] = v.to(dt)
@@ -245,7 +261,7 @@ def fused_identity_bottleneck_tiled_reference(x, w1, b1, w2, b2, w3, b3):
         for tap in range(9):
             dh, dw = divmod(tap, 3)
             acc += product(h1[:, dh:dh + r, dw:dw + w, :cp], w2p[tap])
-        h2 = torch.zeros(bsz, r, w, cp + PAD, dtype=dt)
+        h2 = torch.zeros(bsz, r, w, cp + pad, dtype=dt)
         h2[..., :cp] = F.relu(acc + b2p).to(dt)
         o = product(h2[..., :cp], w3p).to(dt) + b3.to(dt)
         out[:, y0:y0 + r] = F.relu(o + x[:, y0:y0 + r])
