@@ -169,27 +169,63 @@ def test_method_guard_and_launch_counts_on_cpu(rng):
     assert logs["criterions"].shape == ref["criterions"].shape
 
 
+def _pipeline_task(rng, shots, n_class=10, n_task=3, n_query=20):
+    """A batch as host tables plus index matrices: query rows [M, K] with
+    labels, and for few-shot the support rows (every class x shots)."""
+    x, y = make_simplex_tasks(rng, n_task=n_task, n_query=n_query,
+                              n_class=n_class, k_eff=3, concentration=60.0)
+    tables = {"q": (x.reshape(-1, n_class), y.reshape(-1))}
+    idx = {"q": np.arange(x.shape[0] * n_query).reshape(n_task, n_query)}
+    task = {"x_q": x, "y_q": y[..., None]}
+    if shots:
+        y_s = np.tile(np.repeat(np.arange(n_class), shots), (n_task, 1))
+        conc = np.ones((*y_s.shape, n_class))
+        np.put_along_axis(conc, y_s[..., None], 61.0, axis=-1)
+        x_s = rng.gamma(conc).astype(np.float32)
+        x_s /= x_s.sum(-1, keepdims=True)
+        tables["s"] = (x_s.reshape(-1, n_class), y_s.reshape(-1))
+        idx["s"] = np.arange(y_s.size).reshape(y_s.shape)
+        task.update(x_s=x_s, y_s=y_s[..., None])
+    return task, tables, idx
+
+
 @pytest.mark.parametrize("pipeline", ["run_task_fused", "run_task_deferred"])
 @pytest.mark.parametrize("shots,name", [(0, "EM_DIRICHLET"),
                                         (0, "HARD_EM_DIRICHLET"),
                                         (4, "EM_DIRICHLET"),
                                         (4, "ALPHA_TIM")])
-def test_unported_pipelines_raise_naming_their_item(shots, name, pipeline):
-    """Zero- and few-shot methods alike raise the NotImplementedError that
-    names the ROADMAP.md item of the deferred and fused pipelines, not an
-    AttributeError."""
+def test_pipelines_match_run_task(rng, shots, name, pipeline):
+    """Zero- and few-shot methods alike: the deferred and the fused
+    pipelines queue the batch, and their fetched handles finalize into the
+    accuracies, predictions and criterion trace of the blocking run_task on
+    the same batch (the zero-shot ones with the device auction)."""
     from transductive_clip_tpu_torch.core.config import load_full_config
     from transductive_clip_tpu_torch.methods import (
         get_few_shot_method,
         get_zero_shot_method,
     )
-    from transductive_clip_tpu_torch.methods.base import PIPELINES
+    from transductive_clip_tpu_torch.methods.base import fetch_tree
 
     cfg = load_full_config(opts=["dataset", "eurosat", "method", name.lower(),
-                                 "shots", str(shots)], config_root="config")
+                                 "shots", str(shots), "n_query", "20",
+                                 "iter", "30", "matching_backend", "device"],
+                           config_root="config")
     get = get_zero_shot_method if shots == 0 else get_few_shot_method
+    task, tables, idx = _pipeline_task(rng, shots)
+    blocking = get(name, device="cpu", args=cfg).run_task(task)
     method = get(name, device="cpu", args=cfg)
-    with pytest.raises(NotImplementedError) as err:
-        getattr(method, pipeline)([])
-    assert pipeline in str(err.value)
-    assert f"ROADMAP.md: {PIPELINES}" in str(err.value)
+    if pipeline == "run_task_deferred":
+        res = method.run_task_deferred(task)
+    else:
+        dev = {k: tuple(torch.as_tensor(a) for a in t)
+               for k, t in tables.items()}
+        if shots == 0:
+            res = method.run_task_fused(*dev["q"], idx["q"])
+        else:
+            res = method.run_task_fused(dev["s"][0], dev["q"][0], dev["s"][1],
+                                        dev["q"][1], idx["s"], idx["q"])
+    logs = res.finalize(fetch_tree(res.handles), 1e-3)
+    np.testing.assert_array_equal(logs["preds"], blocking["preds"])
+    np.testing.assert_array_equal(logs["acc"], blocking["acc"])
+    np.testing.assert_array_equal(logs["criterions"], blocking["criterions"])
+    assert logs["timestamps"] == 1e-3

@@ -223,9 +223,7 @@ def test_cli_few_shot_path(tmp_path, monkeypatch, rng):
     assert acc == ref and acc > 0.9 and sec_per_task > 0
 
 
-@pytest.mark.parametrize("key,value", [
-    ("defer_fetch", True), ("fused_dispatch", True), ("data_parallel", True),
-])
+@pytest.mark.parametrize("key,value", [("data_parallel", True)])
 def test_unported_evaluator_options_raise(rng, key, value):
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="em_dirichlet",
                                       shots=2, number_tasks=2, batch_size=2,
@@ -244,7 +242,9 @@ def test_registry_and_pipelines_name_the_roadmap_item():
             get_few_shot_method(name, device="cpu", args=cfg)
     with pytest.raises(ValueError, match="Unknown few-shot method"):
         get_few_shot_method("NOPE", device="cpu", args=cfg)
+    # the pipelines decline (None: the evaluator runs the blocking
+    # run_task) where a batch needs a host step: task chunking
+    cfg.task_chunk = 1
     method = get_few_shot_method("ALPHA_TIM", device="cpu", args=cfg)
-    for call in (method.run_task_fused, method.run_task_deferred):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call({})
+    assert method.run_task_deferred({}) is None
+    assert method.run_task_fused(None, None, None, None, None, None) is None

@@ -131,10 +131,7 @@ def test_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch, rng):
                   "log_path", str(tmp_path / "logs")])
 
 
-@pytest.mark.parametrize("key,value", [
-    ("defer_fetch", True), ("fused_dispatch", True),
-    ("matching_backend", "device"), ("data_parallel", True),
-])
+@pytest.mark.parametrize("key,value", [("data_parallel", True)])
 def test_unported_evaluator_options_raise(rng, key, value):
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="em_dirichlet",
                                       shots=0, number_tasks=2, batch_size=2,

@@ -11,8 +11,10 @@ alpha-TIM, TIM-GD and EM-Dirichlet, from the CLI down to the TSV row, and
 CLIP feature extraction (the nine OpenAI towers, images to feature cache),
 with the two Dirichlet row-solve kernels, the alpha-TIM support-gradient
 kernel, the two attention kernels and the fused ResNet bottleneck written
-in CUDA C++ for sm_90a (``csrc/``). ROADMAP.md lists what is still to
-port.
+in CUDA C++ for sm_90a (``csrc/``); the evaluators' deferred and fused
+pipelines, and the cluster->class matching on the host (the C++ LAP solver
+of ``native/``) or on the card (the batched auction, ``csrc/auction.cu``).
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

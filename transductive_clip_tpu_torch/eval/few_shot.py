@@ -8,14 +8,17 @@ argmax-accuracy row of results_few_shot/val/<ds>/<METHOD>_<word>_s<shots>.txt,
 read relative to the working directory; ImageNet reuses caltech101's grid —
 reference: eval_few_shot.py:130-187).
 
-Along the blocking path: each batch's method and accuracy finish before the
-next batch. ``defer_fetch``, ``fused_dispatch`` and ``data_parallel`` raise
-``NotImplementedError`` until their ROADMAP.md items are ported.
+Batch 0 runs blocking; ``defer_fetch`` and ``fused_dispatch`` run the
+later batches through the deferred and fused pipelines as the zero-shot
+evaluator does (eval/zero_shot.py: the same accuracies and predictions, the
+amortised end-to-end time per task). ``data_parallel`` raises
+``NotImplementedError`` until its ROADMAP.md item is ported.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -37,7 +40,14 @@ from ..tasks import (
     SamplerSupportFewShot,
     TasksGeneratorFewShot,
 )
-from .zero_shot import _resolve_n_batches, check_supported
+from .zero_shot import (
+    _device_gather,
+    _resolve_n_batches,
+    check_supported,
+    finalize_deferred,
+    resolve_defer_fetch,
+    resolve_fused_dispatch,
+)
 
 # method -> the hyperparameter tuned on the validation set
 VAL_PARAM = {
@@ -151,7 +161,7 @@ class EvaluatorFewShot:
     def evaluate_tasks(self, support_features, support_labels,
                        query_features, query_labels, text_features=None):
         args = self.args
-        check_supported(args, matching=False)
+        check_supported(args)
         self._log(
             f"=> Running evaluation with method {args.name_method} "
             f"on {args.dataset} ({args.used_test_set} set, {args.shots}-shot)"
@@ -183,11 +193,18 @@ class EvaluatorFewShot:
             feats_s_dev, feats_q_dev = (
                 torch.as_tensor(np.asarray(f, np.float32), device=self.device)
                 for f in (support_features, query_features))
+            labels_s_np = np.asarray(support_labels)
+            labels_q_np = np.asarray(query_labels)
             if flip:
                 feats_s_dev = torch.flip(feats_s_dev, dims=[-1])
                 feats_q_dev = torch.flip(feats_q_dev, dims=[-1])
-            labels_s_np = np.asarray(support_labels)
-            labels_q_np = np.asarray(query_labels)
+                labels_s_np = n_class - 1 - labels_s_np
+                labels_q_np = n_class - 1 - labels_q_np
+            labels_s_dev = torch.as_tensor(labels_s_np, device=self.device)
+            labels_q_dev = torch.as_tensor(labels_q_np, device=self.device)
+        # fused path (methods/base.py run_task_fused): per batch only the
+        # two index matrices cross; the gathers run on the device
+        use_fused = resolve_fused_dispatch(args, device_gather)
 
         results_task, results_time = [], []
         n_batches = _resolve_n_batches(args, self.logger)
@@ -200,38 +217,40 @@ class EvaluatorFewShot:
         )
         sampler.create_list_classes(support_labels, query_labels)
 
-        def gather(table, idx):
-            return table[torch.as_tensor(idx, device=self.device)]
-
-        def make_batch():
-            # the reference's draw order: query first, then support
-            if device_gather:
-                idx_q = np.stack(list(SamplerQueryFewShot(sampler)))
-                idx_s = np.stack(list(SamplerSupportFewShot(sampler)))
-                y_s, y_q = labels_s_np[idx_s], labels_q_np[idx_q]
-                if flip:
-                    y_s, y_q = n_class - 1 - y_s, n_class - 1 - y_q
-                tasks = {
-                    "x_s": gather(feats_s_dev, idx_s), "y_s": y_s[..., None],
-                    "x_q": gather(feats_q_dev, idx_q), "y_q": y_q[..., None],
-                }
-            else:
-                loader_query = [
-                    (query_features[idx], query_labels[idx])
-                    for idx in SamplerQueryFewShot(sampler)
-                ]
-                loader_support = [
-                    (support_features[idx], support_labels[idx])
-                    for idx in SamplerSupportFewShot(sampler)
-                ]
-                tasks = TasksGeneratorFewShot(
-                    k_eff=args.k_eff, shot=args.shots, n_query=args.n_query,
-                    n_class=args.n_class, loader_support=loader_support,
-                    loader_query=loader_query, args=args,
-                ).generate_tasks()
+        def tasks_from_idx(idx_s, idx_q):
+            tasks = {
+                "x_s": _device_gather(feats_s_dev, idx_s),
+                "y_s": labels_s_np[idx_s][..., None],
+                "x_q": _device_gather(feats_q_dev, idx_q),
+                "y_q": labels_q_np[idx_q][..., None],
+            }
             if text_features is not None:
                 tasks["text_features"] = text_features
             return tasks
+
+        def make_batch():
+            # the reference's draw order: query first, then support. With
+            # device_gather only the indices are drawn here
+            if device_gather:
+                idx_q = np.stack(list(SamplerQueryFewShot(sampler)))
+                idx_s = np.stack(list(SamplerSupportFewShot(sampler)))
+                return idx_s, idx_q, None
+            loader_query = [
+                (query_features[idx], query_labels[idx])
+                for idx in SamplerQueryFewShot(sampler)
+            ]
+            loader_support = [
+                (support_features[idx], support_labels[idx])
+                for idx in SamplerSupportFewShot(sampler)
+            ]
+            tasks = TasksGeneratorFewShot(
+                k_eff=args.k_eff, shot=args.shots, n_query=args.n_query,
+                n_class=args.n_class, loader_support=loader_support,
+                loader_query=loader_query, args=args,
+            ).generate_tasks()
+            if text_features is not None:
+                tasks["text_features"] = text_features
+            return None, None, tasks
 
         # prefetch (opt-in): one worker thread samples batch i+1 while the
         # card runs batch i; the single worker keeps the rng draw order
@@ -241,23 +260,76 @@ class EvaluatorFewShot:
             from concurrent.futures import ThreadPoolExecutor
 
             pool = ThreadPoolExecutor(1)
+        defer = resolve_defer_fetch(args, self.device, use_fused)
+        deferred, t_tail0 = [], None
+        # bound what the deferred handles hold (see eval/zero_shot.py):
+        # flush every ``defer_flush_batches`` batches (0 = never)
+        flush_n = int(args.get("defer_flush_batches", 32) or 0)
+
+        def queue(res):
+            nonlocal deferred, t_tail0
+            deferred.append(res)
+            if flush_n and len(deferred) >= flush_n:
+                finalize_deferred(deferred, t_tail0, int(args.batch_size),
+                                  results_task, results_time, timer)
+                deferred, t_tail0 = [], time.perf_counter()
+
         try:
             with trace_if_requested(args.get("profile_dir")):
                 pending = pool.submit(make_batch) if prefetch else None
                 for b in range(n_batches):
                     with timer.phase("sampling"):
-                        tasks = pending.result() if prefetch else make_batch()
+                        idx_s, idx_q, tasks = (pending.result() if prefetch
+                                               else make_batch())
                     if prefetch and b + 1 < n_batches:
                         pending = pool.submit(make_batch)
+                    if defer and use_fused and b > 0 and idx_s is not None:
+                        with timer.phase("dispatch"):
+                            res = method.run_task_fused(
+                                feats_s_dev, feats_q_dev, labels_s_dev,
+                                labels_q_dev, idx_s, idx_q,
+                                shot=args.shots, text_features=text_features,
+                            )
+                        if res is not None:
+                            queue(res)
+                            continue
+                        use_fused = False
+                        self._log(
+                            "fused_dispatch: configuration needs a host "
+                            "step per batch; using per-program deferred "
+                            "dispatch"
+                        )
+                    if tasks is None:
+                        with timer.phase("sampling"):
+                            tasks = tasks_from_idx(idx_s, idx_q)
+                    # batch 0 runs blocking; later batches queue their
+                    # accuracy and are fetched together
+                    if defer and b > 0:
+                        with timer.phase("dispatch"):
+                            res = method.run_task_deferred(
+                                tasks, shot=args.shots)
+                        if res is not None:
+                            queue(res)
+                            continue
+                        defer = False
+                        self._log(
+                            "defer_fetch: configuration needs a host step "
+                            "per batch; falling back to blocking run_task"
+                        )
                     with timer.phase("method"):
                         logs = method.run_task(tasks, shot=args.shots)
                     acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
                     results_task.append(acc_mean)
                     results_time.append(logs["timestamps"])
+                    if defer:
+                        t_tail0 = time.perf_counter()
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)
 
+        if deferred:
+            finalize_deferred(deferred, t_tail0, int(args.batch_size),
+                              results_task, results_time, timer)
         self._log("phase timing -- " + timer.summary())
         # the first batch's time includes warm-up (allocator, kernel build
         # and load); exclude it from the reported mean when there are later

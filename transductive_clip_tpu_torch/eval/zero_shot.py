@@ -2,16 +2,24 @@
 transductive_clip_tpu/eval/zero_shot.py; reference: src/eval_zero_shot.py).
 
 Pipeline per batch of tasks: sampler -> gather feature rows -> stack into
-[n_task, n, d] on the device -> method -> accuracy + CI, along the blocking
-path: each batch's method and accuracy finish before the next batch is
-sampled. ``defer_fetch`` and ``fused_dispatch`` resolve to off (as they do in
-the JAX package off the TPU); asking for either, or for ``data_parallel``,
-raises ``NotImplementedError`` until their ROADMAP.md items are ported.
+[n_task, n, d] on the device -> method -> accuracy + CI. Batch 0 is always
+blocking. After it, ``defer_fetch`` queues each batch's accuracy behind its
+method (``run_task_deferred``) and fetches the results of a window of
+batches in one transfer, and ``fused_dispatch`` feeds those batches from
+the feature and label tables held on the device, so that only the
+[n_task, n_query] index matrix crosses per batch (``run_task_fused``).
+Accuracies and predictions are the blocking path's, bit for bit; under
+deferral the reported time per task is the amortised end-to-end wall clock
+of the deferred batches (sampling, method, accuracy and fetch), not the
+method's own. ``data_parallel`` raises ``NotImplementedError`` until its
+ROADMAP.md item is ported.
 """
 
 from __future__ import annotations
 
 import os
+import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -25,13 +33,28 @@ from ..features.cache import (
     visual_cache_path,
 )
 from ..methods import get_zero_shot_method
-from ..methods.base import PIPELINES, unported
+from ..methods.base import fetch_tree, unported
 from ..ops.common import resolve_device
 from ..tasks import (
     CategoriesSamplerZeroShot,
     SamplerQueryZeroShot,
     TasksGeneratorZeroShot,
 )
+
+# what ``defer_fetch: auto`` resolves to on a CUDA device when the fused
+# route applies (``fused_dispatch`` on, with ``device_gather``); off
+# elsewhere, as the JAX package resolves it off the TPU. Chosen by the
+# zero_shot_pipelines phase of chip_smoke.py, which times the steady
+# zero-shot soft 'pallas' batch on every route in turns: over three runs,
+# five paired readings of 0.2363, 0.2390, 0.2456, 0.2254 and 0.2460 ms per
+# task fused against 0.2523, 0.3192, 0.2643, 0.2300 and 0.2584 blocking,
+# all with the device auction (7.8 host syncs a batch against 9.6). The
+# deferred route without fused dispatch read 0.2411, 0.2672, 0.2724, 0.2315
+# and 0.2538, faster than blocking in only three pairs of five, so ``auto``
+# leaves deferral off where the fused route does not apply (H100 80GB HBM3,
+# 700 W; PERF.md)
+AUTO_DEFER_CUDA = True
+
 
 def _parse_flag(val, name):
     """Parse a CLI/config boolean that may arrive as a string; raises on
@@ -46,29 +69,62 @@ def _parse_flag(val, name):
     raise ValueError(f"{name}: expected a boolean or 'auto', got {val!r}")
 
 
-def _flag_or_auto_off(args, key):
-    """An 'auto'-or-boolean knob whose 'auto' resolves to off here."""
-    val = args.get(key, "auto")
+def resolve_defer_fetch(args, device=None, fused=False):
+    """``defer_fetch``: ``auto`` (default) resolves to AUTO_DEFER_CUDA on a
+    CUDA ``device`` when the fused route applies (``fused``, what
+    ``resolve_fused_dispatch`` gave) and to off elsewhere; ``True`` /
+    ``False`` force it.
+    With deferral on, every batch after the first queues its accuracy
+    behind its method and the host fetches the results of up to
+    ``defer_flush_batches`` batches in one transfer. Accuracies are
+    bit-identical, and the reported per-task time becomes the steady-state
+    end-to-end wall clock (sampling + method + accuracy + fetch, amortised)
+    rather than the method-only time, a conservative superset."""
+    val = args.get("defer_fetch", "auto")
     if isinstance(val, str) and val.strip().lower() == "auto":
-        return False
-    return _parse_flag(val, key)
+        on_cuda = device is not None and torch.device(device).type == "cuda"
+        return AUTO_DEFER_CUDA and on_cuda and bool(fused)
+    return _parse_flag(val, "defer_fetch")
 
 
-def check_supported(args, matching=True):
-    """Raise for the evaluator options whose paths are still to port
-    (``matching``: whether the method's accuracy path matches clusters to
-    classes, so that ``matching_backend`` applies)."""
-    if _flag_or_auto_off(args, "defer_fetch"):
-        raise unported("defer_fetch True (the deferred-fetch pipeline)",
-                       PIPELINES)
-    if _flag_or_auto_off(args, "fused_dispatch"):
-        raise unported("fused_dispatch True (the fused one-dispatch "
-                       "pipeline)", PIPELINES)
-    if matching and str(args.get("matching_backend", "auto")) == "device":
-        raise unported("matching_backend: device (the batched auction)",
-                       PIPELINES)
+def resolve_fused_dispatch(args, device_gather):
+    """``fused_dispatch: auto`` (default) feeds each deferred batch from the
+    tables on the device (methods/base.py ``run_task_fused``) whenever the
+    device-gather path is active; ``True`` / ``False`` force it (it still
+    needs device_gather, and engages only with defer_fetch). Accepts the
+    string spellings of ``--opts`` (``bool('false')`` is True)."""
+    val = args.get("fused_dispatch", "auto")
+    if isinstance(val, str) and val.strip().lower() == "auto":
+        return device_gather
+    return _parse_flag(val, "fused_dispatch") and device_gather
+
+
+def finalize_deferred(deferred, t_tail0, batch_size, results_task,
+                      results_time, timer=None):
+    """Fetch every deferred batch's handles in ONE transfer and append their
+    logs in batch order. ``t_tail0`` marks the start of the deferred window
+    (the end of the blocking batch before it), so the amortised per-task
+    time covers exactly the window's batches."""
+    with timer.phase("deferred_fetch") if timer is not None else nullcontext():
+        host = fetch_tree([r.handles for r in deferred])
+    per_task = (time.perf_counter() - t_tail0) / (len(deferred) * batch_size)
+    for res, h in zip(deferred, host):
+        logs = res.finalize(h, per_task)
+        acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
+        results_task.append(acc_mean)
+        results_time.append(logs["timestamps"])
+
+
+def check_supported(args):
+    """Raise for the evaluator options whose paths are still to port."""
     if _parse_flag(args.get("data_parallel", False), "data_parallel"):
         raise unported("data_parallel True", "'multi-device'")
+
+
+def _device_gather(features_dev, idx):
+    """Task rows gathered on the device: the feature table crosses once per
+    evaluation, and per batch only the [n_task, n] indices."""
+    return features_dev[torch.as_tensor(idx, device=features_dev.device)]
 
 
 def _resolve_n_batches(args, logger=None):
@@ -161,6 +217,8 @@ class EvaluatorZeroShot:
             features_dev = torch.as_tensor(np.asarray(features, np.float32),
                                            device=self.device)
             labels_np = np.asarray(labels)
+            labels_dev = torch.as_tensor(labels_np, device=self.device)
+        use_fused = resolve_fused_dispatch(args, device_gather)
 
         results_task, results_time = [], []
         n_batches = _resolve_n_batches(args, self.logger)
@@ -171,14 +229,71 @@ class EvaluatorZeroShot:
             force_query_size=True, rng=rng,
         )
         sampler.create_list_classes(labels)
+        defer = resolve_defer_fetch(args, self.device, use_fused)
+        deferred, t_tail0 = [], None
+        # every deferred batch holds its handles (and, with the auction,
+        # its [N, R, C] prototype rows, 30 MB at the ImageNet protocol)
+        # until fetched: a flush every ``defer_flush_batches`` batches caps
+        # that while the fetch is still shared by the window (0 = never)
+        flush_n = int(args.get("defer_flush_batches", 32) or 0)
+
+        def settle():
+            nonlocal deferred
+            finalize_deferred(deferred, t_tail0, int(args.batch_size),
+                              results_task, results_time, timer)
+            deferred = []
+
+        def queue(res):
+            nonlocal t_tail0, batches_since_guard
+            deferred.append(res)
+            batches_since_guard += 1
+            if flush_n and len(deferred) >= flush_n:
+                settle()
+                t_tail0 = time.perf_counter()
+
+        # evaluator-routed periodic exactness guard: the deferred and fused
+        # pipelines never host the method's guard, so every guard_every-th
+        # batch runs through the blocking run_task with the guard forced —
+        # its duplicate solve stays out of the timestamps through the
+        # method's _untimed_overhead_s
+        batches_since_guard = 0
         with trace_if_requested(args.get("profile_dir")):
-            for _ in range(n_batches):
+            for b in range(n_batches):
+                # re-read each batch: a tripped guard turns the fast path
+                # (and so the cadence) off for the evaluation
+                guard_every = int(method.guard_recheck_batches() or 0)
+                guard_batch = (guard_every > 0 and b > 0
+                               and batches_since_guard >= guard_every)
+                if guard_batch:
+                    method.request_guard_check()
+                    if deferred:
+                        # settle the open window first: the blocking guard
+                        # batch would otherwise wait for the queued batches
+                        # inside its own timing
+                        settle()
                 with timer.phase("sampling"):
+                    idx = None
                     if device_gather:
                         idx = np.stack(list(SamplerQueryZeroShot(sampler)))
+                if (defer and use_fused and b > 0 and idx is not None
+                        and not guard_batch):
+                    with timer.phase("dispatch"):
+                        res = method.run_task_fused(
+                            features_dev, labels_dev, idx,
+                            text_features=text_features,
+                        )
+                    if res is not None:
+                        queue(res)
+                        continue
+                    use_fused = False
+                    self._log(
+                        "fused_dispatch: configuration needs a host step "
+                        "per batch; using per-program deferred dispatch"
+                    )
+                with timer.phase("sampling"):
+                    if device_gather:
                         tasks = {
-                            "x_q": features_dev[torch.as_tensor(
-                                idx, device=self.device)],
+                            "x_q": _device_gather(features_dev, idx),
                             "y_q": labels_np[idx][..., None],
                         }
                     else:
@@ -193,12 +308,30 @@ class EvaluatorZeroShot:
                         ).generate_tasks()
                 if text_features is not None:
                     tasks["text_features"] = text_features
+                # batch 0 always runs blocking: it builds and loads the
+                # kernels and hosts the method's first-batch guard
+                if defer and b > 0 and not guard_batch:
+                    with timer.phase("dispatch"):
+                        res = method.run_task_deferred(tasks)
+                    if res is not None:
+                        queue(res)
+                        continue
+                    defer = False
+                    self._log(
+                        "defer_fetch: configuration needs a host step per "
+                        "batch; falling back to blocking run_task"
+                    )
                 with timer.phase("method"):
                     logs = method.run_task(tasks)
+                batches_since_guard = 0
                 acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
                 results_task.append(acc_mean)
                 results_time.append(logs["timestamps"])
+                if defer:
+                    t_tail0 = time.perf_counter()   # a new deferred window
 
+        if deferred:
+            settle()
         self._log("phase timing -- " + timer.summary())
         # the first batch's time includes warm-up (allocator, kernel build
         # and load); exclude it from the reported mean when there are later

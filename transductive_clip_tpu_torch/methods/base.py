@@ -1,16 +1,22 @@
 """Shared machinery for transductive methods (counterpart of
-transductive_clip_tpu/methods/base.py, along its blocking path).
+transductive_clip_tpu/methods/base.py).
 
 Every method's math is a function of tensors on ``self.device`` (the card,
 unless the caller passed ``device="cpu"``), batched over the leading task
 axis. The classes here are thin host-side wrappers that provide the
 reference-compatible ``run_task(task_dic) -> logs`` API
 (reference: src/methods/zero_shot/em_dirichlet.py:100-121), time the method,
-and run the once-per-batch cluster->class matching on the host.
+and run the once-per-batch cluster->class matching: on the host (the JV
+solver, ``matching_backend: host``) or on the device (the batched auction
+kernel, ``matching_backend: device``).
 
-Not ported yet (ROADMAP.md): the deferred and fused evaluator pipelines
-(``run_task_deferred``, ``run_task_fused`` raise) and the device auction
-(``matching_backend: device``).
+Besides the blocking ``run_task`` there are the evaluator pipelines:
+``run_task_deferred`` queues the accuracy, matching and rename behind the
+method and fetches nothing, and ``run_task_fused`` does the same for a
+batch gathered on the device from resident feature and label tables. Both
+return a ``DeferredTaskResult`` whose handles the evaluator fetches for
+many batches in one transfer; accuracies and predictions are bit-equal to
+``run_task``'s.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.logger import Logger
+from ..ops import cuda_auction
 from ..ops.common import (
     EPS,
     device_sync,
@@ -31,11 +38,22 @@ from ..ops.common import (
     to_host,
     top_rows,
 )
-from ..ops.matching import basic_matching, cluster_prototypes, hungarian_matching
+from ..ops.matching import (
+    basic_matching,
+    cluster_prototypes,
+    hungarian_matching,
+    hungarian_matching_rows,
+)
 
-
-# the ROADMAP.md item of the deferred and fused pipelines and the auction
-PIPELINES = "'evaluator pipelines and device auction'"
+# what ``matching_backend: auto`` resolves to on a CUDA device (on the CPU
+# it is 'host', as the JAX package resolves it off the TPU). Chosen by the
+# zero_shot_pipelines phase of chip_smoke.py, which times the steady
+# zero-shot soft 'pallas' batch on both routes in turns: over three runs,
+# five paired readings of 0.2523, 0.3192, 0.2643, 0.2300 and 0.2584 ms per
+# task with the auction against 0.5098, 0.4173, 0.4365, 0.3855 and 0.4449
+# with the host JV solver, whose [100, 75, 1000] prototype rows cross to
+# the host every batch (H100 80GB HBM3, 700 W; PERF.md)
+AUTO_MATCHING_CUDA = "device"
 
 
 def unported(what: str, roadmap_item: str):
@@ -87,29 +105,53 @@ def compact_select_impl(cfg):
     return _select_impl(cfg, "compact_select")
 
 
-def _matching_backend(cfg):
-    """'auto' (default) resolves to the host JV solver, as it does in the
-    JAX package off the TPU; the device auction is not ported yet."""
+def _matching_backend(cfg, device=None):
+    """'host' (the JV solver) or 'device' (the batched auction kernel).
+    'auto' (default) resolves to AUTO_MATCHING_CUDA on a CUDA ``device`` and
+    to 'host' elsewhere, as the JAX package resolves it off the TPU."""
     backend = str(cfg.get("matching_backend", "auto"))
     if backend == "auto":
-        backend = "host"
-    if backend == "device":
-        raise unported("matching_backend: device (the batched auction)",
-                       PIPELINES)
+        on_cuda = device is not None and torch.device(device).type == "cuda"
+        backend = AUTO_MATCHING_CUDA if on_cuda else "host"
     return backend
 
 
+def fetch_tree(tree):
+    """Host values of every tensor in ``tree`` (nested tuples and lists) in
+    one counted transfer; everything else passes through."""
+    tensors = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+
+    walk(tree)
+    got = to_host(*tensors) if tensors else ()
+    host = iter(got if len(tensors) > 1 else (got,))
+
+    def build(x):
+        if isinstance(x, torch.Tensor):
+            return next(host)
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(y) for y in x)
+        return x
+
+    return build(tree)
+
+
 def _fetch(*items):
-    """Host values of ``items`` in one transfer: tensors are copied
-    together (one counted sync), everything else passes through."""
-    pos = [i for i, x in enumerate(items) if isinstance(x, torch.Tensor)]
-    host = list(items)
-    if pos:
-        got = to_host(*(items[i] for i in pos))
-        got = got if len(pos) > 1 else (got,)
-        for i, v in zip(pos, got):
-            host[i] = v
-    return host
+    """Host values of ``items`` in one transfer (``fetch_tree``)."""
+    return list(fetch_tree(list(items)))
+
+
+def _host_accuracy(preds, y_q):
+    """Per-task accuracy [N, 1] fp32 of host predictions, computed on the
+    host on every route, so that the routes' accuracies are bit-equal."""
+    acc = (np.asarray(preds) == np.asarray(y_q)).mean(axis=1, keepdims=True)
+    return acc.astype(np.float32)
 
 
 def _proto_rows_device(u, query, T, text_features, use_softmax: bool, R: int,
@@ -144,6 +186,37 @@ def _proto_rows_device(u, query, T, text_features, use_softmax: bool, R: int,
     return preds, idx, probs, present
 
 
+def _accuracy_device(u, query, T, text_features, use_softmax: bool, R: int,
+                     graph_matching: bool, select: str = "topk"):
+    """The zero-shot accuracy reduction on the device: prototypes ->
+    cluster->class matching (the batched auction kernel, or the per-row
+    argmax without ``graph_matching``) -> rename. Only the [N, n]
+    predictions and the ``ok`` flag need to cross to the host; the [N, R, C]
+    prototype rows stay on the device unless the rare budget-exhausted
+    auction needs them (reference: eval_zero_shot.py:176-184 +
+    utils.py:380-417).
+
+    Returns (new_preds [N, n], ok 0-d bool tensor or None, preds [N, n],
+    idx [N, R], probs [N, R, C]).
+    """
+    preds, idx, probs, present = _proto_rows_device(
+        u, query, T, text_features, use_softmax, R, select)
+    ok = None
+    if graph_matching:
+        cols = cuda_auction.auction_assign(probs * present[..., None])
+        ok = (cols >= 0).all()
+        cols = torch.clamp_min(cols, 0)
+    else:
+        cols = torch.argmax(probs, dim=-1)
+    # rename via a dense match-select: each pred matches at most one present
+    # row (top rows are distinct); unmatched preds -> 0, like the zero-filled
+    # LUT of the host path
+    match = ((preds[:, :, None] == idx[:, None, :])
+             & present[:, None, :])                             # [N, n, R]
+    new_preds = torch.where(match, cols[:, None, :].to(preds.dtype), 0).sum(2)
+    return new_preds, ok, preds, idx, probs
+
+
 def _accuracy_inputs(u, query, cfg, text_features):
     """Shared input preparation for the clustering-accuracy paths."""
     n_class = int(cfg.n_class)
@@ -154,53 +227,61 @@ def _accuracy_inputs(u, query, cfg, text_features):
     return u, query.to(torch.float32), tf, use_softmax, R, n_class
 
 
-def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=()):
+def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=(),
+                        logger=None):
     """Zero-shot clustering accuracy with cluster->class matching
     (reference: em_dirichlet.py:61-92).
 
     Prototypes and their class probabilities are computed on the device
     over the present-cluster rows only (``proto_device: False`` switches to
-    the all-host reference-shaped path). With ``graph_matching`` the rows
-    come back to the host for the JV solver; without it the per-row argmax
-    runs on the device. ``extras`` (tensors or host values) ride the same
-    host transfer. Returns (acc [N, 1], matched_preds [N, n]) and, when
-    ``extras`` is non-empty, their host values as a third element.
+    the all-host reference-shaped path). With ``graph_matching`` and the
+    host backend the rows come back to the host for the JV solver; with the
+    device backend the auction kernel matches them on the device
+    (``_accuracy_device``), and only when its budget ran out (``ok``
+    False) do they come back for the JV solver (``note_host_fallback``
+    counts and reports it to ``logger``). ``extras`` (tensors or host
+    values) ride the same host transfer. Returns (acc [N, 1], matched_preds
+    [N, n]) and, when ``extras`` is non-empty, their host values as a third
+    element.
     """
     y_q = np.asarray(y_q)
     if not bool(cfg.get("proto_device", True)):
-        out = _clustering_accuracy_host(u, query, y_q, cfg, text_features)
+        out = _clustering_accuracy_host(u, query, y_q, cfg, text_features,
+                                        logger)
         return out + (_fetch(*extras),) if extras else out
-
-    from ..ops.matching import hungarian_matching_rows
 
     graph_matching = bool(cfg.graph_matching)
     u, query, tf, use_softmax, R, n_class = _accuracy_inputs(
         u, query, cfg, text_features
     )
-    preds_d, idx_d, probs_d, present = _proto_rows_device(
-        u, query, float(cfg.T), tf, use_softmax, R, _proto_select(cfg),
-    )
-    if graph_matching:
-        _matching_backend(cfg)
+    if graph_matching and _matching_backend(cfg, u.device) != "device":
         # host JV matching: the [N, R, C] prototype rows come back
+        preds_d, idx_d, probs_d, _ = _proto_rows_device(
+            u, query, float(cfg.T), tf, use_softmax, R, _proto_select(cfg))
         preds, idx_h, probs_h, *extras_h = _fetch(preds_d, idx_d, probs_d,
                                                   *extras)
         new_preds = hungarian_matching_rows(preds, idx_h, probs_h, n_class)
     else:
-        # rename via a match-select: each pred matches at most one present
-        # row (top rows are distinct); unmatched preds -> 0
-        cols = torch.argmax(probs_d, dim=-1)
-        match = ((preds_d[:, :, None] == idx_d[:, None, :])
-                 & present[:, None, :])                         # [N, n, R]
-        new_preds_d = torch.where(match, cols[:, None, :], 0).sum(2)
-        new_preds, *extras_h = _fetch(new_preds_d, *extras)
-    acc = (new_preds == y_q).mean(axis=1, keepdims=True).astype(np.float32)
+        new_preds_d, ok, preds_d, idx_d, probs_d = _accuracy_device(
+            u, query, float(cfg.T), tf, use_softmax, R, graph_matching,
+            _proto_select(cfg))
+        new_preds, ok_h, *extras_h = _fetch(new_preds_d, ok, *extras)
+        if ok_h is not None and not bool(ok_h):
+            # the auction hit its round budget with unassigned rows
+            # (pathological ties): the exact host solver instead of wrong
+            # labels
+            note_host_fallback(u.shape[0], logger)
+            new_preds = hungarian_matching_rows(
+                *_fetch(preds_d, idx_d, probs_d), n_class)
+    acc = _host_accuracy(new_preds, y_q)
     return (acc, new_preds, extras_h) if extras else (acc, new_preds)
 
 
-def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None):
+def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None,
+                              logger=None):
     """All-host accuracy path, shaped exactly like the reference
     (full-width float64 prototypes; reference: em_dirichlet.py:61-92)."""
+    device = u.device
     u, query_np = _fetch(u, query)
     n_class = int(cfg.n_class)
     preds = u.argmax(axis=2)
@@ -219,13 +300,55 @@ def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None):
         probs = e / e.sum(axis=-1, keepdims=True)
 
     if bool(cfg.graph_matching):
-        _matching_backend(cfg)
-        new_preds = hungarian_matching(preds, probs)
+        if _matching_backend(cfg, device) == "device":
+            new_preds = device_matching(preds, one_hot, probs, device,
+                                        logger)
+        else:
+            new_preds = hungarian_matching(preds, probs)
     else:
         new_preds = basic_matching(preds, probs)
+    return _host_accuracy(new_preds, y_q), new_preds
 
-    acc = (new_preds == y_q).mean(axis=1, keepdims=True)
-    return acc.astype(np.float32), new_preds
+
+def device_matching(preds, one_hot, probs, device, logger=None):
+    """Cluster->class matching of the all-host path through the batched
+    auction on ``device``: rows = the top-n_query clusters by population
+    (absent clusters get constant-zero value rows, which cannot displace
+    real rows from their optimum); the exact host solver when the auction's
+    budget ran out (``note_host_fallback``)."""
+    n_task, n_query, n_class = one_hot.shape
+    counts = one_hot.sum(axis=1)                              # [N, K]
+    r = min(n_class, n_query)
+    idx = np.argsort(-counts, axis=1)[:, :r]                  # [N, R]
+    vals = np.take_along_axis(probs, idx[..., None], axis=1)  # [N, R, C]
+    present = np.take_along_axis(counts, idx, axis=1) > 0
+    vals = vals * present[..., None]
+    cols = to_host(cuda_auction.auction_assign(
+        torch.as_tensor(vals, dtype=torch.float32, device=device)))
+    if (cols < 0).any():
+        note_host_fallback(n_task, logger)
+        return hungarian_matching(preds, probs)
+    lut = np.zeros((n_task, n_class), preds.dtype)
+    np.put_along_axis(lut, idx, cols.astype(preds.dtype), axis=1)
+    return np.take_along_axis(lut, preds, axis=1)
+
+
+def note_host_fallback(n_task, logger=None):
+    """Count and report a batch whose auction ran out of rounds with rows
+    unassigned (``ok`` False, pathological ties): its matching is then
+    solved by the host JV solver, off the card, as the JAX package does.
+    ``note_host_fallback.count`` counts such batches, so that a run can
+    show that none of its batches left the card."""
+    note_host_fallback.count += 1
+    msg = (f"the device auction ran out of rounds in a batch of {n_task} "
+           "tasks; its matching was solved by the host JV solver")
+    if logger is not None:
+        logger.warning(msg)
+    else:
+        warnings.warn(msg)
+
+
+note_host_fallback.count = 0
 
 
 def _warn_compaction(populated, n_compact, logger=None):
@@ -269,6 +392,24 @@ def direct_accuracy(u, y_q, extras=()):
     acc = (preds == np.asarray(y_q)).mean(axis=1, keepdims=True)
     acc = acc.astype(np.float32)
     return (acc, preds, extras_h) if extras else (acc, preds)
+
+
+class DeferredTaskResult:
+    """One batch's ``run_task`` outputs with every host fetch deferred.
+
+    ``handles`` is a tree of tensors on the device (plus host passthroughs
+    like ``None``); the evaluator fetches the handles of many batches in one
+    transfer (``fetch_tree``), so no host sync waits on batch b while batch
+    b + 1 is sampled. ``finalize(host_values, elapsed_per_task)`` then
+    builds the logs dict ``run_task`` returns; accuracy and predictions are
+    bit-equal to the blocking path."""
+
+    def __init__(self, handles, finalize):
+        self.handles = handles
+        self._finalize = finalize
+
+    def finalize(self, host_values, elapsed_per_task):
+        return self._finalize(host_values, elapsed_per_task)
 
 
 def split_infer_out(out):
@@ -378,6 +519,20 @@ class TransductiveMethod:
             iter_widths=self._timing_iter_widths(n_used, n_full, n_task),
         )
 
+    # -- evaluator guard protocol ------------------------------------------
+    def guard_recheck_batches(self):
+        """Batches between evaluator-routed blocking guard re-checks; 0
+        (default) = the method has no periodic exactness guard. Methods whose
+        guard needs a host step (EM-Dirichlet's compact_first_iter) override
+        it: the evaluator routes every M-th batch through the blocking
+        ``run_task`` after :meth:`request_guard_check`, because the guard
+        never fires inside the deferred and fused pipelines."""
+        return 0
+
+    def request_guard_check(self):
+        """Ask the next blocking ``_infer`` to re-run its exactness guard;
+        no-op for methods without one."""
+
     # -- subclass hook ----------------------------------------------------
     def _infer(self, task):
         """Run the method. Returns (u, criterions[, n_exec])."""
@@ -484,7 +639,7 @@ class TransductiveMethod:
         if self.acc_mode == "clustering":
             acc, preds, extras = clustering_accuracy(
                 u, query, y_q, self.args, text_features=text_features,
-                extras=extras,
+                extras=extras, logger=self.logger,
             )
         else:
             acc, preds, extras = direct_accuracy(u, y_q, extras=extras)
@@ -499,13 +654,138 @@ class TransductiveMethod:
             **self._timing_logs_for(elapsed, n_task, n_exec, criterions),
         }
 
-    def run_task_fused(self, *args, **kwargs):
-        raise unported("run_task_fused (the fused one-dispatch pipeline)",
-                       PIPELINES)
+    # -- the evaluator pipelines -------------------------------------------
+    def _declines_pipelines(self) -> bool:
+        """Whether this configuration needs a host step per batch (task
+        chunking, the host prototype path or host JV matching): the deferred
+        and fused pipelines then return None and the evaluator runs
+        ``run_task``."""
+        cfg = self.args
+        if int(cfg.get("task_chunk", 0) or 0) > 0:
+            return True
+        if self.acc_mode == "clustering":
+            if not bool(cfg.get("proto_device", True)):
+                return True
+            if (bool(cfg.get("graph_matching", False))
+                    and _matching_backend(cfg, self.device) != "device"):
+                return True
+        return False
 
-    def run_task_deferred(self, *args, **kwargs):
-        raise unported("run_task_deferred (the deferred-fetch pipeline)",
-                       PIPELINES)
+    def _infer_untimed(self, task):
+        """``_infer`` outside a blocking ``run_task``: no exactness guard
+        fires (``_guard_allowed`` stays False); returns (u, criterions,
+        n_exec, the pending compaction check)."""
+        self._pending_check = None
+        u, criterions, n_exec = split_infer_out(self._infer(task))
+        pend, self._pending_check = self._pending_check, None
+        return u, criterions, n_exec, pend
+
+    def _deferred_result(self, u, query, y_q, text_features, criterions,
+                         n_exec, pend):
+        """Queue the accuracy behind the method and wrap the handles.
+
+        ``y_q``: host labels or a tensor on the device. With
+        ``graph_matching`` the [N, R, C] prototype rows stay held on the
+        device until the finalizer has run: a budget-exhausted auction
+        needs them for the host JV solver (the evaluator's
+        ``defer_flush_batches`` bounds what they hold)."""
+        cfg = self.args
+        n_task = u.shape[0]
+        populated = pend.populated if pend is not None else None
+        held = None
+        graph_matching = False
+        if self.acc_mode == "clustering":
+            graph_matching = bool(cfg.graph_matching)
+            u, query, tf, use_softmax, R, n_class = _accuracy_inputs(
+                u, query, cfg, text_features)
+            new_preds, ok, preds, idx, probs = _accuracy_device(
+                u, query, float(cfg.T), tf, use_softmax, R, graph_matching,
+                _proto_select(cfg))
+            if graph_matching:
+                held = (preds, idx, probs)
+        else:
+            new_preds, ok = torch.argmax(u, dim=2), None
+        handles = (new_preds, ok, y_q, criterions, n_exec, populated)
+
+        def finalize(host, elapsed_per_task):
+            new_preds, ok_h, y_q_h, crit, n_ex, populated_h = host
+            if graph_matching and not bool(ok_h):
+                note_host_fallback(n_task, self.logger)
+                new_preds = hungarian_matching_rows(*fetch_tree(held),
+                                                    int(cfg.n_class))
+            return self._deferred_logs(
+                _host_accuracy(new_preds, y_q_h), new_preds, crit, n_ex,
+                populated_h, pend, elapsed_per_task, n_task)
+
+        return DeferredTaskResult(handles, finalize)
+
+    def run_task_deferred(self, task_dic, shot=None):
+        """Run the method and queue the accuracy programs with no host sync
+        after ``_infer`` (the method's own loop still reads its stop tests).
+
+        Returns a :class:`DeferredTaskResult`, or ``None`` when this
+        configuration needs a host step per batch (``_declines_pipelines``)
+        — the caller then runs the blocking ``run_task``. Accuracy and
+        predictions are bit-equal to ``run_task``; the per-batch method time
+        is not measured (the caller gives ``finalize`` an amortised
+        per-task time).
+        """
+        if self._declines_pipelines():
+            return None
+        task, y_q = self._prepare_task(task_dic)
+        u, criterions, n_exec, pend = self._infer_untimed(task)
+        return self._deferred_result(u, task["x_q"], y_q,
+                                     task["text_features"], criterions,
+                                     n_exec, pend)
+
+    def _tf_device(self, text_features):
+        """Text features on the device for the fused path, copied once per
+        distinct host array (identity-keyed; the cache holds the array so
+        its id cannot be reused)."""
+        if text_features is None:
+            return None
+        cached = getattr(self, "_tf_dev_cache", None)
+        if cached is not None and cached[0] is text_features:
+            return cached[1]
+        tf = torch.as_tensor(text_features, dtype=torch.float32,
+                             device=self.device)
+        self._tf_dev_cache = (text_features, tf)
+        return tf
+
+    def run_task_fused(self, features_dev, labels_dev, idx, shot=None,
+                       text_features=None):
+        """A batch fed from tables on the device: the query rows and labels
+        are gathered on the device from ``features_dev`` [M, d] and
+        ``labels_dev`` [M] by the host [n_task, n_query] index matrix ``idx``
+        — the only per-batch input that crosses — then the method and the
+        accuracy are queued as in ``run_task_deferred`` (same contract,
+        same ``None``). JAX folds this into one jitted program; eager torch
+        has no such trace, so it is the same work on device-resident inputs.
+        """
+        if self._declines_pipelines():
+            return None
+        if text_features is None and not bool(self.args.use_softmax_feature):
+            return None     # visual-feature methods need the text prototypes
+        tf = self._tf_device(text_features)
+        idx_d = torch.as_tensor(idx, device=self.device)
+        task = {"x_q": features_dev[idx_d], "y_q": labels_dev[idx_d],
+                "text_features": tf}
+        u, criterions, n_exec, pend = self._infer_untimed(task)
+        return self._deferred_result(u, task["x_q"], task["y_q"], tf,
+                                     criterions, n_exec, pend)
+
+    def _deferred_logs(self, acc, preds, criterions, n_exec, populated,
+                       pend, elapsed_per_task, n_task):
+        if pend is not None:
+            pend.finish(populated)
+        criterions = np.asarray(criterions)
+        return {
+            "acc": np.asarray(acc),
+            "preds": np.asarray(preds),
+            "criterions": criterions,
+            **self._timing_logs_for(
+                elapsed_per_task * n_task, n_task, n_exec, criterions),
+        }
 
 
 class FewShotMethod(TransductiveMethod):
@@ -524,3 +804,27 @@ class FewShotMethod(TransductiveMethod):
         task["y_s"] = torch.as_tensor(y_s, dtype=torch.int64,
                                       device=self.device)
         return task, y_q
+
+    def run_task_fused(self, feats_s_dev, feats_q_dev, labels_s_dev,
+                       labels_q_dev, idx_s, idx_q, shot=None,
+                       text_features=None):
+        """A few-shot batch fed from tables on the device (see
+        ``TransductiveMethod.run_task_fused``): support and query rows and
+        labels gathered on the device by the two host index matrices. The
+        tables are in the method's label space already: the evaluator
+        applies the softmax remap (label flip, column reversal) to them
+        once."""
+        if self._declines_pipelines():
+            return None
+        if text_features is None and not bool(self.args.use_softmax_feature):
+            # visual-feature methods need the text prototypes; planting
+            # zeros would give a uniform init where run_task raises
+            return None
+        idx_s = torch.as_tensor(idx_s, device=self.device)
+        idx_q = torch.as_tensor(idx_q, device=self.device)
+        task = {"x_s": feats_s_dev[idx_s], "y_s": labels_s_dev[idx_s],
+                "x_q": feats_q_dev[idx_q], "y_q": labels_q_dev[idx_q],
+                "text_features": self._tf_device(text_features)}
+        u, criterions, n_exec, pend = self._infer_untimed(task)
+        return self._deferred_result(u, task["x_q"], task["y_q"], None,
+                                     criterions, n_exec, pend)

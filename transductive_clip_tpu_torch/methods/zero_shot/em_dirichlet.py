@@ -357,9 +357,13 @@ class EM_DIRICHLET(TransductiveMethod):
         self._cf_guard_pending = cf == "auto"
         self._cf_guard_auto = cf == "auto"
         # periodic re-verification cadence (batches between guard re-runs;
-        # <= 0 keeps the first-batch-only guard)
+        # <= 0 keeps the first-batch-only guard). The guard runs only inside
+        # a blocking run_task: direct-API loops advance the batch counter
+        # per call, and the deferred and fused evaluator pipelines route
+        # every M-th batch through run_task after request_guard_check
         self._cf_recheck = int(args.get("compact_first_recheck", 64))
         self._cf_batches_since_check = 0
+        self._cf_force_guard = False
         self.early_stop = bool(args.get("early_stop", True))
         self.early_stop_tol = float(args.get("early_stop_tol", 1e-6))
         # task compaction: True -> default width 8; False/0 -> batch-max
@@ -370,6 +374,19 @@ class EM_DIRICHLET(TransductiveMethod):
             ct = 8
         self.compact_tasks = int(ct or 0)
         self.select = compact_select_impl(args)
+
+    def guard_recheck_batches(self):
+        """The ``compact_first_recheck`` cadence while the auto guard could
+        still need re-running, else 0: the evaluator routes every M-th batch
+        of the deferred and fused pipelines, which never host the guard,
+        through the blocking ``run_task`` (eval/zero_shot.py)."""
+        if self._cf_guard_auto and self.compact_first and self._cf_recheck > 0:
+            return self._cf_recheck
+        return 0
+
+    def request_guard_check(self):
+        """Force the next blocking ``_infer`` to run the exactness guard."""
+        self._cf_force_guard = True
 
     def _timing_iter_widths(self, n_used, n_full, n_task):
         """Task compaction's cost model: the first ``n_full`` iterations at
@@ -422,6 +439,7 @@ class EM_DIRICHLET(TransductiveMethod):
         guard_allowed = getattr(self, "_guard_allowed", False)
         guard_due = cf_engaged and self._cf_guard_auto and guard_allowed and (
             self._cf_guard_pending
+            or self._cf_force_guard
             or (self._cf_recheck > 0
                 and self._cf_batches_since_check >= self._cf_recheck)
         )
@@ -441,6 +459,7 @@ class EM_DIRICHLET(TransductiveMethod):
             self._untimed_overhead_s = time.perf_counter() - t_guard
             first_check = self._cf_guard_pending
             self._cf_guard_pending = False
+            self._cf_force_guard = False
             self._cf_batches_since_check = 0
             which = ("first-batch" if first_check
                      else f"periodic (every {self._cf_recheck} batches)")

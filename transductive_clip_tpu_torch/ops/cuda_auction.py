@@ -1,0 +1,100 @@
+"""The batched auction on the card (``csrc/auction.cu``), the device
+matching of ``matching_backend: device``.
+
+The JAX package runs ``ops/auction.py``'s ``auction_assign`` as one XLA
+``lax.while_loop`` (no Pallas kernel); here it is one kernel written in CUDA
+C++ for sm_90a, one CTA per task running the task's rounds to their end, in
+the JAX function's order and arithmetic, so ``col4row`` is the same bit for
+bit (the source's head comment says how).
+
+``auction_assign`` takes its plain torch version
+(``ops.auction.auction_assign_reference``) for a tensor on the CPU, and only
+then; for a CUDA tensor it launches the kernel or raises.
+``auction_assign.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import kernel_build
+from .auction import auction_assign_reference
+
+SOURCE = "auction.cu"
+# threads of a task's CTA: 16 warps, one bidding person each at a time
+THREADS = 512
+# dynamic shared memory a CTA may take (227 KB)
+SMEM_MAX = 232448
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def smem_bytes(n_rows: int, n_cols: int) -> int:
+    """A task's shared memory: bid keys (8 B), prices and owners (4 B each)
+    per object, and the owned column and the bidder list (4 B each) per
+    person."""
+    return 16 * n_cols + 8 * n_rows
+
+
+def max_objects(n_rows: int) -> int:
+    """The largest C whose state fits a CTA's shared memory at ``n_rows``."""
+    return (SMEM_MAX - 8 * n_rows) // 16
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = kernel_build.load(SOURCE)
+    lib.tclip_auction.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_float,
+                                  _I, _I, _I, _P]
+    lib.tclip_auction.restype = _I
+    lib.tclip_error_string.argtypes = [_I]
+    lib.tclip_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def auction_assign(values, eps: float = 1e-5, max_iters: int = 200_000,
+                   return_rounds: bool = False):
+    """Batched max-value assignment (see the module docstring): values
+    [N, R, C] fp32 -> col4row [N, R] int32, -1 for a person left unassigned
+    when ``max_iters`` rounds ran out. With ``return_rounds`` also the
+    rounds each task ran, [N]."""
+    if values.device.type == "cpu":
+        return auction_assign_reference(values, eps=eps, max_iters=max_iters,
+                                        return_rounds=return_rounds)
+    if values.device.type != "cuda":
+        raise ValueError(f"auction_assign: values on {values.device}")
+    if values.dtype != torch.float32 or values.dim() != 3:
+        raise ValueError("auction_assign: values must be [N, R, C] float32, "
+                         f"got {tuple(values.shape)} {values.dtype}")
+    if not values.is_contiguous():
+        raise ValueError("auction_assign: values must be contiguous")
+    n, r, c = values.shape
+    if not (0 < n < 2 ** 31 and r > 0 and c > 0):
+        raise ValueError(f"auction_assign: unsupported shape {tuple(values.shape)}")
+    smem = smem_bytes(r, c)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"auction_assign: C = {c} objects do not fit a CTA's shared "
+            f"memory ({smem} of {SMEM_MAX} bytes at R = {r}); the kernel "
+            f"takes at most C = {max_objects(r)}")
+    col4row = torch.empty((n, r), dtype=torch.int32, device=values.device)
+    rounds = torch.empty(n, dtype=torch.int32, device=values.device)
+    lib = _library()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tclip_auction(values.data_ptr(), col4row.data_ptr(),
+                               rounds.data_ptr(), n, r, c, eps,
+                               int(max_iters), THREADS, smem, stream)
+    if rc != 0:
+        msg = lib.tclip_error_string(rc).decode()
+        raise RuntimeError(f"auction_assign: kernel launch failed: {msg} "
+                           f"(cuda error {rc})")
+    auction_assign.launches += 1
+    return (col4row, rounds) if return_rounds else col4row
+
+
+auction_assign.launches = 0

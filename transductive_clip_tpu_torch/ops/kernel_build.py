@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use, into ``_build/`` beside this package (listed in .gitignore),
 keyed by a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is reused. ``build`` starts one ``nvcc`` per missing source,
-all at once. Nothing here runs when the module is imported.
+all at once. ``host_library`` does the same for a C++ source of the host
+(``native/lapjv.cpp``) with ``g++``. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # every kernel source of the port, and special_check.cu, which checks the
 # Dirichlet kernels' arithmetic; chip_smoke.py builds them all together
 SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu", "attention.cu",
-           "bottleneck.cu", "special_check.cu")
+           "bottleneck.cu", "auction.cu", "special_check.cu")
 # no --use_fast_math: the parity of the kernels with their plain versions
 # rests on IEEE fp32 division, logf and expf; -Xptxas -v reports each
 # kernel's registers, shared memory and spills into ``build_log``
@@ -31,6 +33,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 900
+# the host compiler's flags for host_library (as the JAX package builds its
+# LAP solver)
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 #: source name -> the compiler's output of its last build in this process
 build_log: dict = {}
@@ -93,6 +98,30 @@ def build(sources=SOURCES) -> None:
             failed.append(f"--- {source} (nvcc exit {proc.returncode}) ---\n{log}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def host_library(source: Path) -> Path:
+    """The shared library of the host C++ file ``source``, compiled by
+    ``g++`` with HOST_FLAGS into ``_build/`` at first use, keyed by the
+    contents of the file and the flags. Raises with the compiler's output
+    if the build fails."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(source.read_bytes())
+    out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    compiler = shutil.which("g++") or shutil.which("c++")
+    if compiler is None:
+        raise RuntimeError("no host C++ compiler (g++) on the PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([compiler, *HOST_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{compiler} failed on {source.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

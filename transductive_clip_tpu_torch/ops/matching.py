@@ -5,9 +5,9 @@ src/utils.py:380-417).
 * ``hungarian_matching`` — optimal one-to-one assignment of the clusters
   present in the predictions to classes, maximising total prototype
   probability, per task on a rectangular cost [n_present <= n_query, K].
-  The LAP solver is ``scipy.optimize.linear_sum_assignment``, the solver the
-  JAX package's ``native.lap_solve`` falls back to (its C++ JV solver is
-  still to port, see ROADMAP.md).
+  The LAP solver is ``native.lap_solve``: the C++ shortest-augmenting-path
+  solver (``native/lapjv.cpp``), with scipy's as the fallback, as in the JAX
+  package.
 * ``basic_matching`` — per-cluster argmax-probability matching.
 
 These run on the host once per task batch, outside the EM loops.
@@ -16,8 +16,8 @@ These run on the host once per task batch, outside the EM loops.
 from __future__ import annotations
 
 import numpy as np
-from scipy.optimize import linear_sum_assignment
 
+from ..native import lap_solve
 from .common import EPS
 
 
@@ -55,7 +55,7 @@ def hungarian_matching(preds, probs):
     new_preds = np.zeros_like(preds)
     for t in range(preds.shape[0]):
         clusters = _present_clusters(preds[t])
-        _, matched_cols = linear_sum_assignment(-probs[t, clusters, :])
+        _, matched_cols = lap_solve(-probs[t, clusters, :])
         lut = np.zeros(probs.shape[1], dtype=preds.dtype)
         lut[clusters] = matched_cols
         new_preds[t] = lut[preds[t]]
@@ -91,7 +91,7 @@ def hungarian_matching_rows(preds, row_idx, row_probs, n_class):
         clusters = _present_clusters(preds[t])
         pos = np.full(n_class, -1, np.int64)
         pos[row_idx[t]] = np.arange(row_idx.shape[1])
-        _, matched_cols = linear_sum_assignment(-row_probs[t, pos[clusters], :])
+        _, matched_cols = lap_solve(-row_probs[t, pos[clusters], :])
         lut = np.zeros(n_class, dtype=preds.dtype)
         lut[clusters] = matched_cols
         new_preds[t] = lut[preds[t]]
