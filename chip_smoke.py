@@ -102,11 +102,32 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    every 32nd image of that split (254 images, cut from 8100), batches of
    64, to its own T = 30 cache, one batch's features held against the plain
    route (cuDNN's fp32 convolutions, TF32 off) under 1e-4, and one batch
-   timed on both routes;
+   timed on both routes; with the bf16 model still loaded, one CLI call
+   of soft k-means with ``use_softmax_feature False`` on that split
+   (zero_shot_visual_rn50): the evaluator extracts the visual cache (K5 12
+   launches a batch, pixels made on the card in place of the decoded
+   images) and evaluates it to its TSV row;
 9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
    text tower) over every 32nd image of that split (254 images, cut from
    8100), batches of 64, its features and its first and last attention
-   modules' outputs held against the 'xla' route on one batch.
+   modules' outputs held against the 'xla' route on one batch;
+10. the six other zero-shot methods (soft, hard and KL k-means,
+   EM-Gaussian, EM-Gaussian-cov, inductive CLIP) through the CLI on the
+   zero-shot softmax cache, two blocking batches each: accuracy (above
+   ACCURACY_FLOOR), steady ms per task, auction launches (none for
+   inductive CLIP) and no host-LAP fallback; soft k-means and
+   EM-Gaussian-cov again on the default route (fused, with the auction),
+   batch for batch equal to blocking (zero_shot_methods);
+11. PADDLE, BD-CSPN and LaplacianShot through the CLI on the 4-shot
+   caches with their tuned values from the val grids, two blocking
+   batches each, and LaplacianShot on the default routes (it declines the
+   pipelines), equal to blocking (few_shot_methods);
+12. synthetic ImageNet-shaped visual caches at RN50's width (1024) with
+   text prototypes: one blocking batch of each zero-shot method with
+   ``use_softmax_feature False`` (EM-Dirichlet must refuse) and of
+   PADDLE, BD-CSPN, LaplacianShot and alpha-TIM, each accuracy finite and
+   in (0, 1] (visual_methods). Each of phases 8 (the visual call) and
+   10-12 logs the card's name and power limit.
 
 With random weights an accuracy only has to be finite and in [0, 1].
 
@@ -248,6 +269,29 @@ BLOCKING = ["defer_fetch", "false"]
 # K5 fp32 and the fp32 image tower are also timed at EXTRACT_BATCH, the
 # batch an fp32 extraction runs by default
 F32_BATCH = 64
+# the methods of phases zero_shot_methods, few_shot_methods and
+# visual_methods, and the accuracy each must pass on the synthetic softmax
+# caches: the first H100 80GB HBM3 (700 W) run read 0.2363 (soft k-means,
+# EM-Gaussian: at T = 30 their soft assignments over 1000 clusters are
+# nearly flat, and the JAX package gives the same accuracies on such
+# tasks), 0.9998 (hard k-means), 0.7622 (KL k-means), 0.2633
+# (EM-Gaussian-cov) and 1.0 (inductive CLIP, PADDLE, BD-CSPN,
+# LaplacianShot); the floors leave a margin under each
+ZS_METHODS = ("soft_kmeans", "hard_kmeans", "kl_kmeans", "em_gaussian",
+              "em_gaussian_cov", "inductive_clip")
+FS_METHODS = ("paddle", "bdcspn", "laplacian_shot")
+ACCURACY_FLOOR = {"soft_kmeans": 0.2, "hard_kmeans": 0.95, "kl_kmeans": 0.7,
+                  "em_gaussian": 0.2, "em_gaussian_cov": 0.2,
+                  "inductive_clip": 0.95, "paddle": 0.95, "bdcspn": 0.95,
+                  "laplacian_shot": 0.95}
+# the zero-shot methods whose default route (fused, with the auction) is
+# held batch for batch against their blocking batches
+FUSED_CHECKED = ("soft_kmeans", "em_gaussian_cov")
+# the synthetic visual caches: RN50's embedding width, each image its
+# class's unit text direction plus Gaussian noise of about the same norm
+# (1 / sqrt(d) a coordinate), L2-normalized
+VISUAL_DIM = 1024
+VISUAL_NOISE = VISUAL_DIM ** -0.5
 
 
 def log(msg):
@@ -502,18 +546,21 @@ def write_imagenet_cache(root, split, per_class, seed):
 
 
 def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
-                  window=None, host_fallbacks=0):
+                  window=None, host_fallbacks=0, min_accuracy=MIN_ACCURACY):
     """The port's CLI entry, in process, with every kernel count set to 0
     just before; returns (accuracy, ms/task over the batches after the
     first, launches by kernel, host syncs per batch). Each blocking batch is
-    logged with its own counts; ``on_batch(method, logs)`` sees each one.
-    Fails unless exactly ``host_fallbacks`` batches had their matching
-    solved on the host after the device auction ran out of rounds
-    (``note_host_fallback.count``; 0 but where the test forces it).
+    logged with its own counts (LaplacianShot's own ``run_task`` too);
+    ``on_batch(method, logs)`` sees each one. Fails unless exactly
+    ``host_fallbacks`` batches had their matching solved on the host after
+    the device auction ran out of rounds (``note_host_fallback.count``; 0
+    but where the test forces it), and unless the accuracy is finite, at
+    most 1 and above ``min_accuracy``.
 
     ``window`` (a dict) asks for the steady window too, filled in: every
     batch's predictions and accuracies in batch order (``batches``: from
-    the blocking run_task and the finalized deferred and fused results), and
+    the blocking run_task and the finalized deferred and fused results;
+    ``deferred``: how many came from the latter), and
     from the end of the blocking batch 0 to the end of the evaluation (a
     synchronize at each end) its wall clock per task (``ms_per_task``), its
     host syncs per batch (``syncs``) and, with ``window["profile"]``, the
@@ -527,6 +574,9 @@ def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
         TransductiveMethod,
         note_host_fallback,
     )
+    from transductive_clip_tpu_torch.methods.few_shot.laplacian_shot import (
+        LAPLACIAN_SHOT,
+    )
     from transductive_clip_tpu_torch.ops.common import to_host
 
     opts = ["dataset", "imagenet", "number_tasks", str(number_tasks),
@@ -537,44 +587,51 @@ def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
         wrapper.launches = 0
     to_host.syncs = 0
     note_host_fallback.count = 0
-    run_task = TransductiveMethod.run_task
+    run_tasks = {cls: cls.run_task
+                 for cls in (TransductiveMethod, LAPLACIAN_SHOT)}
     finalize = DeferredTaskResult.finalize
-    batches, steady = [], {}
+    batches, steady, deferred = [], {}, []
 
-    def logged_run_task(self, task_dic, shot=None):
-        """One batch of the evaluation, logged with its own counts."""
-        before = [w.launches for w in counters.values()] + [to_host.syncs]
-        logs = run_task(self, task_dic, shot)
-        after = [w.launches for w in counters.values()] + [to_host.syncs]
-        delta = [b - a for a, b in zip(before, after)]
-        log(f"  batch: ms_per_task {1e3 * logs['timestamps']:.4f} "
-            f"iterations {len(logs['timestamps_cumulative'])} accuracy "
-            f"{logs['acc'].mean():.6f} launches "
-            f"{dict(zip(counters, delta[:-1]))} host_syncs {delta[-1]}")
-        if on_batch is not None:
-            on_batch(self, logs)
-        batches.append((logs["preds"], logs["acc"]))
-        if window is not None and not steady:
-            torch.cuda.synchronize()
-            if window.get("profile"):
-                steady["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA])
-                steady["prof"].start()
-            steady.update(t0=time.perf_counter(), syncs0=to_host.syncs)
-        return logs
+    def logged(run_task):
+        def logged_run_task(self, task_dic, shot=None):
+            """One batch of the evaluation, logged with its own counts."""
+            before = [w.launches for w in counters.values()] + [to_host.syncs]
+            logs = run_task(self, task_dic, shot)
+            after = [w.launches for w in counters.values()] + [to_host.syncs]
+            delta = [b - a for a, b in zip(before, after)]
+            log(f"  batch: ms_per_task {1e3 * logs['timestamps']:.4f} "
+                f"iterations {len(logs['timestamps_cumulative'])} accuracy "
+                f"{logs['acc'][:, -1].mean():.6f} launches "
+                f"{dict(zip(counters, delta[:-1]))} host_syncs {delta[-1]}")
+            if on_batch is not None:
+                on_batch(self, logs)
+            batches.append((logs["preds"], logs["acc"]))
+            if window is not None and not steady:
+                torch.cuda.synchronize()
+                if window.get("profile"):
+                    steady["prof"] = profile(
+                        activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                    steady["prof"].start()
+                steady.update(t0=time.perf_counter(), syncs0=to_host.syncs)
+            return logs
+        return logged_run_task
 
     def logged_finalize(self, host, elapsed_per_task):
         logs = finalize(self, host, elapsed_per_task)
         batches.append((logs["preds"], logs["acc"]))
+        deferred.append(len(batches) - 1)
         return logs
 
-    TransductiveMethod.run_task = logged_run_task
+    for cls, run_task in run_tasks.items():
+        cls.run_task = logged(run_task)
     DeferredTaskResult.finalize = logged_finalize
     try:
         acc, sec_per_task = cli.main(
             ["--config-root", os.path.join(HERE, "config"), "--opts", *opts])
     finally:
-        TransductiveMethod.run_task = run_task
+        for cls, run_task in run_tasks.items():
+            cls.run_task = run_task
         DeferredTaskResult.finalize = finalize
     launches = {name: w.launches for name, w in counters.items()}
     n_batches = number_tasks // N_TASK
@@ -587,13 +644,14 @@ def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
         fail(f"{label}: {note_host_fallback.count} batches solved their "
              f"matching on the host after the device auction ran out of "
              f"rounds, not {host_fallbacks}")
-    if not acc > MIN_ACCURACY:
-        fail(f"{label}: accuracy {acc} <= {MIN_ACCURACY}")
+    if not (acc > min_accuracy and acc <= 1.0):
+        fail(f"{label}: accuracy {acc} outside ({min_accuracy}, 1]")
     if window is not None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - steady["t0"]
         steady_batches = n_batches - 1
-        window.update(batches=batches, launches=launches,
+        window.update(batches=batches, deferred=len(deferred),
+                      launches=launches,
                       evaluator_ms_per_task=1e3 * sec_per_task,
                       ms_per_task=1e3 * wall / (steady_batches * N_TASK),
                       syncs=(to_host.syncs - steady["syncs0"]) / steady_batches)
@@ -1021,6 +1079,173 @@ def run_few_shot_pipelines(root, counters):
             for route in ("deferred", "fused"):
                 _same_batches(f"few-shot {method} {route} vs blocking",
                               runs[route], runs["blocking"])
+
+
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def run_methods(root, counters, records):
+    """Phases zero_shot_methods and few_shot_methods: the k-means family,
+    EM-Gaussian (with and without a diagonal precision) and inductive CLIP
+    through the CLI on the zero-shot softmax cache, and PADDLE, BD-CSPN and
+    LaplacianShot on the 4-shot caches (each its tuned value from the val
+    grid), two blocking batches each: accuracy, steady ms per task, auction
+    launches (> 0 for the clustering methods, 0 for inductive CLIP) and no
+    host-LAP fallback. Then soft k-means and EM-Gaussian-cov on the default
+    route (fused, with the auction) and LaplacianShot on the default routes
+    (the method declines the pipelines): every batch equal to blocking."""
+    from transductive_clip_tpu_torch.eval.few_shot import VAL_PARAM
+
+    auction = 0
+    with Phase("zero_shot_methods"):
+        log(_smi())
+        table, blocking = {}, {}
+        for name in ZS_METHODS:
+            window = {}
+            t0 = time.perf_counter()
+            acc, ms, got, syncs = run_main_path(
+                root, f"zero-shot {name}",
+                ["shots", "0", "method", name, *BLOCKING], 2 * N_TASK,
+                counters, window=window, min_accuracy=ACCURACY_FLOOR[name])
+            clustering = name != "inductive_clip"
+            if clustering != (got["auction_assign"] > 0):
+                fail(f"zero-shot {name} launched auction_assign "
+                     f"{got['auction_assign']} times")
+            auction += got["auction_assign"]
+            blocking[name] = window["batches"]
+            table[name] = {"accuracy": acc, "ms_per_task": ms,
+                           "auction_launches": got["auction_assign"],
+                           "host_fallbacks": 0,
+                           "host_syncs_per_batch": syncs,
+                           "seconds": time.perf_counter() - t0}
+        for name in FUSED_CHECKED:
+            window = {}
+            run_main_path(root, f"zero-shot {name} default route",
+                          ["shots", "0", "method", name], 2 * N_TASK,
+                          counters, window=window,
+                          min_accuracy=ACCURACY_FLOOR[name])
+            if window["deferred"] != 1 or window["launches"][
+                    "auction_assign"] != 2:
+                fail(f"zero-shot {name} default route: {window['deferred']} "
+                     "batches deferred, auction launches "
+                     f"{window['launches']['auction_assign']}")
+            auction += window["launches"]["auction_assign"]
+            _same_batches(f"zero-shot {name} fused vs blocking",
+                          window["batches"], blocking[name])
+        log("zero-shot methods, two blocking batches each: "
+            + json.dumps(table))
+        records["zero_shot_methods"] = table
+    with Phase("few_shot_methods"):
+        log(_smi())
+        table = {}
+        for name in FS_METHODS:
+            tuned = {}
+
+            def keep_param(method, logs, name=name):
+                key = VAL_PARAM[name.upper()]
+                tuned[key] = method.args[key]
+
+            window = {}
+            t0 = time.perf_counter()
+            acc, ms, got, syncs = run_main_path(
+                root, f"few-shot {name}",
+                ["shots", str(SHOTS), "method", name, *BLOCKING],
+                2 * N_TASK, counters, on_batch=keep_param, window=window,
+                min_accuracy=ACCURACY_FLOOR[name])
+            table[name] = {"accuracy": acc, "ms_per_task": ms, **tuned,
+                           "host_syncs_per_batch": syncs,
+                           "seconds": time.perf_counter() - t0}
+            if name == "laplacian_shot":
+                default = {}
+                run_main_path(root, "few-shot laplacian_shot default routes",
+                              ["shots", str(SHOTS), "method", name],
+                              2 * N_TASK, counters, window=default,
+                              min_accuracy=ACCURACY_FLOOR[name])
+                if default["deferred"]:
+                    fail("few-shot laplacian_shot took a pipeline")
+                _same_batches("few-shot laplacian_shot default vs blocking",
+                              default["batches"], window["batches"])
+        log("few-shot methods, two blocking batches each: "
+            + json.dumps(table))
+        records["few_shot_methods"] = table
+    records["auction_assign"]["methods_launches"] = auction
+
+
+def write_visual_caches(root, seed):
+    """Synthetic ImageNet-shaped visual caches at RN50's width under
+    ``root``: test PER_CLASS and train TRAIN_PER_CLASS images a class, each
+    its class's unit direction plus noise (VISUAL_NOISE a coordinate),
+    L2-normalized, made on the card from ``seed``; the unit directions are
+    the text prototypes, written where ``extraction.text_cache_path`` looks."""
+    import torch
+
+    from transductive_clip_tpu_torch.core.config import CfgNode
+    from transductive_clip_tpu_torch.core.io import save_pickle
+    from transductive_clip_tpu_torch.eval.extraction import text_cache_path
+    from transductive_clip_tpu_torch.features.cache import (
+        save_feature_cache,
+        visual_cache_path,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    text = torch.randn(N_CLASS, VISUAL_DIM, generator=g, device="cuda")
+    text /= torch.linalg.norm(text, dim=-1, keepdim=True)
+    for split, per_class in (("test", PER_CLASS), ("train", TRAIN_PER_CLASS)):
+        labels = torch.arange(N_CLASS, device="cuda").repeat_interleave(
+            per_class)
+        feats = text[labels] + VISUAL_NOISE * torch.randn(
+            labels.numel(), VISUAL_DIM, generator=g, device="cuda")
+        feats /= torch.linalg.norm(feats, dim=-1, keepdim=True)
+        save_feature_cache(
+            visual_cache_path("imagenet", split, "RN50", root=root),
+            feats.cpu().numpy(), labels.cpu().numpy())
+    path = text_cache_path(CfgNode(dict(root=root, dataset="imagenet",
+                                        backbone="RN50")))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_pickle(path, {"text_features": text.cpu().numpy()})
+
+
+def run_visual_methods(root, counters, records):
+    """Phase visual_methods: on synthetic visual caches and text prototypes
+    (``write_visual_caches``), one blocking batch of each zero-shot method
+    with ``use_softmax_feature False`` (EM-Dirichlet must refuse) and of
+    PADDLE, BD-CSPN, LaplacianShot and alpha-TIM (TIM_ITER Adam steps);
+    every accuracy finite and in (0, 1]."""
+    root = os.path.join(root, "visual")
+    with Phase("visual_methods"):
+        log(_smi())
+        write_visual_caches(root, SEED + 2)
+        visual = ["use_softmax_feature", "False", *BLOCKING]
+        try:
+            run_main_path(root, "visual zero-shot em_dirichlet",
+                          ["shots", "0", "method", "em_dirichlet", *visual],
+                          N_TASK, counters, min_accuracy=0.0)
+        except ValueError as e:
+            if "simplex" not in str(e):
+                raise
+            log(f"visual zero-shot em_dirichlet refused: {e}")
+        else:
+            fail("zero-shot em_dirichlet ran on visual features")
+        table = {}
+        runs = [("0", name, []) for name in ZS_METHODS]
+        runs += [(str(SHOTS), name, []) for name in FS_METHODS]
+        runs.append((str(SHOTS), "alpha_tim", ["iter", str(TIM_ITER)]))
+        for shots, name, extra in runs:
+            acc, ms, got, _ = run_main_path(
+                root, f"visual {shots}-shot {name}",
+                ["shots", shots, "method", name, *visual, *extra], N_TASK,
+                counters, min_accuracy=0.0)
+            table[f"{shots}-shot {name}"] = {
+                "accuracy": acc, "ms_per_task_first_batch": ms,
+                "auction_launches": got["auction_assign"]}
+        log("visual-feature methods, one blocking batch each: "
+            + json.dumps(table))
+        records["visual_methods"] = table
 
 
 def l2_read_rate():
@@ -1544,9 +1769,83 @@ def extract(label, model, args, dataset, items, size, batch, counters):
     return path, launches, n_batches, first
 
 
+def zero_shot_visual_rn50(model, root, dataset_path, counters, records):
+    """Phase zero_shot_visual_rn50: one CLI call, ``method soft_kmeans
+    use_softmax_feature False`` on the EuroSAT split with the loaded RN50
+    bf16 model (``fused_resnet=True``): the evaluator extracts the test
+    split's visual cache (pixels made on the card from the seed, in place
+    of the decoded images; K5 12 launches a batch) and evaluates it (the
+    text prototypes from the cache the extraction phase wrote) to its TSV
+    row, written under ``root``."""
+    import numpy as np
+
+    from transductive_clip_tpu_torch import cli
+    from transductive_clip_tpu_torch import data as tdata
+    from transductive_clip_tpu_torch.features.cache import (
+        load_feature_cache,
+        visual_cache_path,
+    )
+    from transductive_clip_tpu_torch.methods.base import note_host_fallback
+
+    def pixels(items, preprocess=None, batch_size=EXTRACT_BATCH):
+        labels = np.array([d.label for d in items], np.int64)
+        return pixel_batches(labels, 224, batch_size, SEED + 3)
+
+    with Phase("zero_shot_visual_rn50"):
+        log(_smi())
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        note_host_fallback.count = 0
+        load, batches = cli.maybe_load_clip, tdata.iter_image_batches
+        cli.maybe_load_clip = lambda args, device=None: (model, None)
+        tdata.iter_image_batches = pixels
+        os.chdir(root)
+        t0 = time.perf_counter()
+        try:
+            acc, sec_per_task = cli.main(
+                ["--config-root", os.path.join(HERE, "config"), "--opts",
+                 "dataset", "eurosat", "method", "soft_kmeans", "shots", "0",
+                 "use_softmax_feature", "False", "backbone", "RN50",
+                 "root", root, "dataset_path", dataset_path,
+                 "number_tasks", str(N_TASK), "batch_size", str(N_TASK),
+                 "save_results", "True",
+                 "log_path", os.path.join(root, "logs")])
+        finally:
+            os.chdir(HERE)
+            cli.maybe_load_clip, tdata.iter_image_batches = load, batches
+        seconds = time.perf_counter() - t0
+        got = {name: w.launches for name, w in counters.items()}
+        feats, _ = load_feature_cache(visual_cache_path(
+            "eurosat", "test", "RN50", root=root))
+        with open(os.path.join(root, "results_zero_shot", "test", "eurosat",
+                               "SOFT_KMEANS_visual_0shot.txt")) as f:
+            row = f.read().strip().splitlines()[-1]
+        log(f"zero-shot soft_kmeans, visual features from pixels (random "
+            f"RN50 weights): accuracy {acc:.6f} ms_per_task "
+            f"{1e3 * sec_per_task:.4f} seconds {seconds:.3f} launches {got} "
+            f"cache {feats.shape} TSV row {row!r}")
+        n_batches = -(-EUROSAT_TEST // EXTRACT_BATCH)
+        if got["fused_identity_bottleneck"] != 12 * n_batches:
+            fail(f"the visual RN50 extraction launched K5 "
+                 f"{got['fused_identity_bottleneck']} times, not "
+                 f"{12 * n_batches}")
+        if feats.shape != (EUROSAT_TEST, VISUAL_DIM) or not (
+                np.isfinite(feats).all()):
+            fail(f"RN50 visual cache: shape {feats.shape} or not finite")
+        if not 0.0 <= acc <= 1.0:
+            fail(f"zero-shot soft_kmeans on visual features: accuracy {acc}")
+        if note_host_fallback.count:
+            fail(f"zero-shot soft_kmeans on visual features: "
+                 f"{note_host_fallback.count} batches solved their matching "
+                 "on the host")
+        records["fused_identity_bottleneck"]["visual_path_launches"] = got[
+            "fused_identity_bottleneck"]
+
+
 def run_extraction(root, counters, records, launches):
-    """Phases extraction_rn50, extraction_rn50_fp32,
-    zero_shot_eval_rn50_cache and extraction_vitl336_fp32."""
+    """Phases extraction_rn50 (with zero_shot_visual_rn50),
+    extraction_rn50_fp32, zero_shot_eval_rn50_cache and
+    extraction_vitl336_fp32."""
     import numpy as np
     import torch
 
@@ -1597,7 +1896,9 @@ def run_extraction(root, counters, records, launches):
         compare_routes("RN50", model, first, prompts, counters)
         time_routes("RN50", model, first)
         profile_encode("RN50 encode, one batch of 512", model, first)
-        del model, first
+        del first
+        zero_shot_visual_rn50(model, root, dataset_path, counters, records)
+        del model
         torch.cuda.empty_cache()
     with Phase("extraction_rn50_fp32"):
         # the same checkpoint under float32: K5's fp32 kernel on the 12
@@ -1711,11 +2012,7 @@ def main():
     resolve_device("cuda")   # TF32 off for the plain versions' products
 
     with Phase("setup"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-        log(smi)
+        log(_smi())
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
@@ -1853,6 +2150,8 @@ def main():
         del values
         run_few_shot(root, counters, records, launches)
         run_few_shot_pipelines(root, counters)
+        run_methods(root, counters, records)
+        run_visual_methods(root, counters, records)
         with Phase("profile"):
             for solver in ("pallas", "auto"):
                 profile_batch(root, solver)
@@ -1882,7 +2181,9 @@ def main():
             **{key: rec[key] for key in ("sfu_bound_ms", "ms_full_width",
                                          "few_shot_launches",
                                          "vit_path_launches",
-                                         "fp32_path_launches", "rounds_max",
+                                         "fp32_path_launches",
+                                         "visual_path_launches",
+                                         "methods_launches", "rounds_max",
                                          "rounds_mean", "bids", "bound_l2_ms")
                if key in rec},
         })

@@ -235,16 +235,32 @@ def test_unported_evaluator_options_raise(rng, key, value):
 
 
 def test_registry_and_pipelines_name_the_roadmap_item():
+    """Every few-shot name of the JAX registry resolves to the port's class
+    of the same name (the roadmap's few-shot items are all ported); an
+    unknown name is refused; the pipelines decline where a batch needs a
+    host step."""
+    from transductive_clip_tpu.methods import FEW_SHOT_METHODS as JAX_FS
+
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="paddle",
                                       shots=2), config_root=CONFIG_ROOT)
-    for name in ("PADDLE", "BDCSPN", "LAPLACIAN_SHOT"):
-        with pytest.raises(NotImplementedError, match="remaining few-shot"):
-            get_few_shot_method(name, device="cpu", args=cfg)
+    assert len(JAX_FS) == 7
+    for name, jax_cls in JAX_FS.items():
+        config = {"TIM-GD": "tim"}.get(name, name.lower())
+        method = get_few_shot_method(name, device="cpu", args=load_full_config(
+            opts=_opts(dataset="eurosat", method=config, shots=2),
+            config_root=CONFIG_ROOT))
+        assert type(method).__name__ == jax_cls.__name__
     with pytest.raises(ValueError, match="Unknown few-shot method"):
         get_few_shot_method("NOPE", device="cpu", args=cfg)
     # the pipelines decline (None: the evaluator runs the blocking
     # run_task) where a batch needs a host step: task chunking
     cfg.task_chunk = 1
     method = get_few_shot_method("ALPHA_TIM", device="cpu", args=cfg)
+    assert method.run_task_deferred({}) is None
+    assert method.run_task_fused(None, None, None, None, None, None) is None
+    # and LaplacianShot on every configuration: its accuracy trace needs
+    # its own run_task (ROADMAP.md, fault F5)
+    cfg.task_chunk = 0
+    method = get_few_shot_method("LAPLACIAN_SHOT", device="cpu", args=cfg)
     assert method.run_task_deferred({}) is None
     assert method.run_task_fused(None, None, None, None, None, None) is None

@@ -143,10 +143,20 @@ def test_unported_evaluator_options_raise(rng, key, value):
 
 
 def test_registry_names_the_roadmap_item():
+    """Every zero-shot name of the JAX registry resolves to the port's
+    class of the same name (the roadmap's zero-shot items are all ported);
+    an unknown name is refused."""
+    from transductive_clip_tpu.methods import ZERO_SHOT_METHODS as JAX_ZS
+
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="soft_kmeans"),
                            config_root=CONFIG_ROOT)
-    with pytest.raises(NotImplementedError, match="remaining zero-shot"):
-        get_zero_shot_method("SOFT_KMEANS", device="cpu", args=cfg)
+    assert len(JAX_ZS) == 8
+    for name, jax_cls in JAX_ZS.items():
+        config = {"CLIP": "inductive_clip"}.get(name, name.lower())
+        method = get_zero_shot_method(name, device="cpu", args=load_full_config(
+            opts=_opts(dataset="eurosat", method=config),
+            config_root=CONFIG_ROOT))
+        assert type(method).__name__ == jax_cls.__name__
     with pytest.raises(ValueError, match="Unknown zero-shot method"):
         get_zero_shot_method("NOPE", device="cpu", args=cfg)
 

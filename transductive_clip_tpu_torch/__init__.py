@@ -6,8 +6,11 @@ it is the reference each ported function is tested against. The port keeps
 the JAX package's module layout, so each module here has its counterpart at
 the same relative path there, and imports nothing from it.
 
-Ported so far: zero-shot EM-Dirichlet (soft and hard) and few-shot
-alpha-TIM, TIM-GD and EM-Dirichlet, from the CLI down to the TSV row, and
+Ported so far: every transductive method of the JAX package (zero-shot
+EM-Dirichlet soft and hard, soft, hard and KL k-means, EM-Gaussian with and
+without a diagonal precision, inductive CLIP; few-shot EM-Dirichlet soft
+and hard, alpha-TIM, TIM-GD, PADDLE, BD-CSPN, LaplacianShot) on softmax or
+visual features, from the CLI down to the TSV row, and
 CLIP feature extraction (the nine OpenAI towers, images to feature cache),
 with the two Dirichlet row-solve kernels, the alpha-TIM support-gradient
 kernel, the two attention kernels and the fused ResNet bottleneck written

@@ -32,7 +32,6 @@ from ..features.cache import (
     visual_cache_path,
 )
 from ..methods import get_few_shot_method
-from ..methods.base import unported
 from ..ops.common import resolve_device
 from ..tasks import (
     CategoriesSamplerFewShot,
@@ -94,7 +93,9 @@ class EvaluatorFewShot:
     def run_full_evaluation(self, model=None, preprocess=None):
         """Extract the train and ``used_test_set`` features if a cache is
         missing (``model``, ``preprocess``: ``models.clip.load``'s pair),
-        then evaluate over all tasks from the caches."""
+        then evaluate over all tasks from the caches; with visual features
+        the methods also read the CLIP text prototypes
+        (``extraction.get_text_features``)."""
         args = self.args
         support_path, query_path = self.cache_paths()
         if not (os.path.exists(support_path) and os.path.exists(query_path)):
@@ -102,14 +103,16 @@ class EvaluatorFewShot:
 
             ensure_features(args, model, preprocess,
                             splits=("train", args.used_test_set))
+        text_features = None
         if not args.use_softmax_feature:
-            raise unported("visual-feature evaluation (the methods that "
-                           "read CLIP text features)",
-                           "'remaining few-shot methods'")
+            from .extraction import get_text_features
+
+            text_features = get_text_features(args, model)
         support_features, support_labels = load_feature_cache(support_path)
         query_features, query_labels = load_feature_cache(query_path)
         mean_acc, mean_time = self.evaluate_tasks(
-            support_features, support_labels, query_features, query_labels)
+            support_features, support_labels, query_features, query_labels,
+            text_features=text_features)
         self.report_results(mean_acc, mean_time)
         return mean_acc, mean_time
 

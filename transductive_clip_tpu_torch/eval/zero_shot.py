@@ -179,7 +179,10 @@ class EvaluatorZeroShot:
     def run_full_evaluation(self, model=None, preprocess=None):
         """Extract the test split's features if their cache is missing
         (``model``, ``preprocess``: ``models.clip.load``'s pair), then
-        evaluate over all tasks from the cache."""
+        evaluate over all tasks from the cache; with visual features
+        (``use_softmax_feature: False``) the methods also read the CLIP text
+        prototypes (``extraction.get_text_features``: cached, else computed
+        with ``model``)."""
         args = self.args
         path = self.query_cache_path()
         if not os.path.exists(path):
@@ -187,12 +190,14 @@ class EvaluatorZeroShot:
 
             ensure_features(args, model, preprocess,
                             splits=(args.used_test_set,))
+        text_features = None
         if not args.use_softmax_feature:
-            raise unported("visual-feature evaluation (the methods that "
-                           "read CLIP text features)",
-                           "'remaining zero-shot methods'")
+            from .extraction import get_text_features
+
+            text_features = get_text_features(args, model)
         features, labels = load_feature_cache(path)
-        mean_acc, mean_time = self.evaluate_tasks(features, labels)
+        mean_acc, mean_time = self.evaluate_tasks(
+            features, labels, text_features=text_features)
         self.report_results(mean_acc, mean_time)
         return mean_acc, mean_time
 

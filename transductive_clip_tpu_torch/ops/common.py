@@ -66,6 +66,12 @@ def get_one_hot(y, n_class, dtype=torch.float32):
     return (y[..., None] == classes).to(dtype)
 
 
+def l2_normalize(x, dim=-1, eps=1e-12):
+    """Row-normalize to unit L2 norm (zero rows stay finite)."""
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=dim, keepdim=True),
+                               eps)
+
+
 def top_rows(counts, R):
     """(values, indices) of the ``R`` largest entries along the last axis,
     in descending order with the lower index first on ties — the order
