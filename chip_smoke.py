@@ -45,12 +45,17 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    share), the auction's exhausted-budget fallback forced once on the
    fused route (equal to the host route), and the native LAP loaded
    (phase zero_shot_pipelines); the auction kernel against its plain
-   version, col4row equal, on that phase's first device batch's values
-   [100, 75, 1000], on random ones, at the edges (C = 1, R = 1, R = C,
-   C = 63, rows of zeros), on the 5 x 5 price wars of values on a 0.25
-   grid and with the budget run out, each case's rounds, and ms beside the
-   bound (also with the re-reads at a measured L2 rate) and the plain
-   version's on the timed ones (auction_vs_plain);
+   version, col4row, rounds and scans equal, on that phase's first device
+   batch's values [100, 75, 1000], on random ones, at the edges (C = 1,
+   R = 1, R = C, C = 63, rows of zeros), on rows it groups or must not
+   (repeated rows, rows one ulp apart, rows of -0.0 and of +0.0, many
+   distinct rows at C = 2000), on the 5 x 5 price wars of
+   values on a 0.25 grid and with the budget run out, each case's rounds
+   and scans, and ms (ten calls a timed window, and one, beside the first
+   design's figure quoted from PERF.md), the bound (the values read once;
+   logged beside, with every bid's row read again) and the plain version's
+   on the timed ones, and the ms a round on the zero-shot batch
+   (auction_vs_plain);
 5. the few-shot main path through the CLI at the 4-shot ImageNet protocol
    (support 4 x 1000 rows, 75 queries, 100 tasks a batch) on synthetic
    train and test caches, with blocking batches: alpha-TIM with
@@ -688,6 +693,29 @@ def _dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def queued_ms(fn, calls=10, runs=5):
+    """Median milliseconds a call of ``fn`` takes on the card with the host
+    out of the window: a spinning kernel (~2.5 ms) holds the stream while
+    the host queues the two events and ``calls`` calls between them, so
+    the card runs them back to back however long the host takes to launch
+    each."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    return statistics.median(times)
+
+
 def _report_profile(label, prof, wall_us, syncs, top=10):
     events = _device_events(prof)
     busy = sum(_dev_us(e) for e in events)
@@ -746,7 +774,7 @@ def profile_batch(root, solver):
     """Where one steady-state batch of the zero-shot soft main path spends
     its time: the method's run_task on a steady batch under torch.profiler;
     prints the top kernels by device time, the device's busy share of the
-    wall clock, and K1's device time and launches."""
+    wall clock, and K1's and the auction's device time and launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -763,9 +791,12 @@ def profile_batch(root, solver):
     events, _ = _report_profile(f"zero-shot {solver}", prof, wall_us,
                                 to_host.syncs)
     k1 = [e for e in events if "dirichlet_row_solve" in e.key]
+    auction = [e for e in events if "auction_kernel" in e.key]
     log(f"profile zero-shot {solver}: dirichlet_row_solve (K1) "
         f"{sum(_dev_us(e) for e in k1) / 1e3:.3f} ms of device time in "
-        f"{sum(e.count for e in k1)} launches; host_syncs {to_host.syncs}")
+        f"{sum(e.count for e in k1)} launches, auction_assign "
+        f"{sum(_dev_us(e) for e in auction) / 1e3:.3f} ms in "
+        f"{sum(e.count for e in auction)}; host_syncs {to_host.syncs}")
 
 
 def profile_tim_steps(method, task, n_steps=3):
@@ -1248,36 +1279,22 @@ def run_visual_methods(root, counters, records):
         records["visual_methods"] = table
 
 
-def l2_read_rate():
-    """Bytes a second that one reduction kernel reads from a buffer held in
-    L2: 16 MB, summed 64 times over through a stride-0 view after a warm-up
-    call has brought it in (the median of 5 CUDA-event timings). A rate the
-    card reaches, not its peak: a bound made with it is an upper estimate
-    of the least time."""
-    import torch
-
-    x = torch.rand(4 << 20, device="cuda")
-    view = x.expand(64, -1)
-    ms = time_ms(lambda: view.sum(1))
-    return 64 * x.numel() * 4 / (ms * 1e-3)
+# the first design's times on these cases, taken one call a timed window
+# (PERF.md's table of the kernels with no Pallas counterpart, H100 80GB
+# HBM3 at 700 W): quoted in the log beside this run's times, never recorded
+AUCTION_FIRST_DESIGN_MS = {"zero-shot batch": 1.1352, "random": 0.1172,
+                  "5 x 5 on a 0.25 grid": 21.5540}
 
 
-def run_auction_checks(records, zero_shot_values):
-    """Phase auction_vs_plain: the auction kernel against its plain version,
-    col4row equal, on a zero-shot batch's values, on random ones, at the
-    edges, on the quantised 5 x 5 price wars, and with the budget run out;
-    ms and rounds of each case. The timed cases carry two bounds: every
-    bid's row read at the HBM rate (``bound_ms``), and the batch's values
-    read once from HBM with the later rounds' re-reads at the L2 rate
-    ``l2_read_rate`` measured here (``bound_l2_ms``: the batch, 30 MB at
-    the protocol's shape, stays in the 50 MB L2)."""
+def auction_cases():
+    """auction_vs_plain's cases besides the zero-shot batch's values, as
+    (name, values on the card, max_iters, timed): random values, the edges
+    of the kernel (C = 1, R = 1, R = C, C not a multiple of 4), rows the
+    kernel groups and rows it must not (repeated non-zero rows, rows one
+    ulp apart, rows of -0.0 beside rows of +0.0, many distinct rows at
+    C = 2000), the quantised 5 x 5 price wars and a budget run out."""
     import numpy as np
     import torch
-
-    from transductive_clip_tpu_torch.ops import cuda_auction as cau
-    from transductive_clip_tpu_torch.ops.auction import (
-        auction_assign_reference,
-    )
 
     def uniform(seed, *shape):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1285,74 +1302,157 @@ def run_auction_checks(records, zero_shot_values):
 
     zeros = uniform(4, 8, N_QUERY, N_CLASS)
     zeros[:, 10:] = 0.0                 # absent clusters: rows of zeros
+    # the cases of rows the kernel groups, made with numpy so that their
+    # rounds are known (price wars of ~1e3 rounds at most: the plain version
+    # runs the whole batch's rounds)
+    def draw(seed, *shape):
+        return np.random.default_rng(seed).uniform(
+            0, 1, size=shape).astype(np.float32)
+
+    signed = draw(20, 8, 24, 97)
+    signed[:, 3:] = 0.0
+    signed[:, 3::2] = -0.0
+    repeated = draw(21, 16, 30, N_CLASS)
+    repeated[:, 12:24] = repeated[:, :12]
+    repeated97 = np.round(draw(22, 16, 6, 97) * 4) / 4
+    repeated97[:, 1::3] = repeated97[:, :1]
+    ulp = np.repeat(draw(23, 16, 3, 64), 2, axis=1)
+    ulp[:, 1::2] = np.nextafter(ulp[:, 1::2], np.float32(2))
+    wide = draw(24, 8, 40, 2000)
+    wide[:, 30:] = wide[:, :10]
+    signed, repeated, repeated97, ulp, wide = (
+        torch.as_tensor(a, device="cuda")
+        for a in (signed, repeated, repeated97, ulp, wide))
     wars = np.random.default_rng(0).uniform(0, 1, size=(125, 5, 5))
     wars = torch.as_tensor(np.round(wars.astype(np.float32) * 4) / 4).to(
         zeros.device)
-    # name, values, max_iters, headline (the plain version timed, the bound)
+    return (("random", uniform(1, N_TASK, N_QUERY, N_CLASS), 200_000, True),
+            ("C = 1", uniform(2, 16, 1, 1), 200_000, False),
+            ("C = 1, R = 3", uniform(3, 16, 3, 1), 64, False),
+            ("R = 1", uniform(5, 16, 1, N_CLASS), 200_000, False),
+            ("R = C", uniform(6, 16, N_QUERY, N_QUERY), 200_000, False),
+            ("C = 63", uniform(7, 16, 30, 63), 200_000, False),
+            ("rows of zeros", zeros, 200_000, False),
+            ("rows of -0.0 and +0.0", signed, 200_000, False),
+            ("repeated rows", repeated, 200_000, False),
+            ("repeated rows, C = 97, a 0.25 grid", repeated97, 200_000,
+             False),
+            ("rows one ulp apart", ulp, 200_000, False),
+            ("many distinct rows, C = 2000", wide, 200_000, False),
+            ("5 x 5 on a 0.25 grid", wars, 200_000, True),
+            ("budget run out", uniform(8, N_TASK, N_QUERY, N_CLASS), 2,
+             False))
+
+
+def run_auction_checks(records, zero_shot_values):
+    """Phase auction_vs_plain: the auction kernel against its plain version,
+    col4row, rounds and scans (the rows it scanned: one a group of bit-equal
+    rows with an unassigned row, a round) equal, on a zero-shot batch's
+    values and on auction_cases(); ms and rounds of each case (ten calls a
+    timed window, and one, as the first design was timed, whose figure the
+    log quotes beside), and on the zero-shot batch the ms a round (the
+    batch at max_iters 1 and in full, each queued behind a spinning kernel,
+    the difference over the rounds between).
+    The timed cases carry the bound counted the guide's way (``bound_ms``:
+    the values read once and col4row written once at the HBM rate, 2 x
+    scans x C fp32 operations); the log adds the first design's figure with
+    every bid's row read again (``bound_rereads_ms``)."""
+    import torch
+
+    from transductive_clip_tpu_torch.ops import cuda_auction as cau
+    from transductive_clip_tpu_torch.ops.auction import (
+        auction_assign_reference,
+    )
+
     cases = (("zero-shot batch", zero_shot_values, 200_000, True),
-             ("random", uniform(1, N_TASK, N_QUERY, N_CLASS), 200_000, True),
-             ("C = 1", uniform(2, 16, 1, 1), 200_000, False),
-             ("C = 1, R = 3", uniform(3, 16, 3, 1), 64, False),
-             ("R = 1", uniform(5, 16, 1, N_CLASS), 200_000, False),
-             ("R = C", uniform(6, 16, N_QUERY, N_QUERY), 200_000, False),
-             ("C = 63", uniform(7, 16, 30, 63), 200_000, False),
-             ("rows of zeros", zeros, 200_000, False),
-             ("5 x 5 on a 0.25 grid", wars, 200_000, True),
-             ("budget run out", uniform(8, N_TASK, N_QUERY, N_CLASS), 2,
-              False))
+             *auction_cases())
     with Phase("auction_vs_plain"):
+        log(_smi())
         rec = None
-        l2_rate = l2_read_rate()
-        log(f"L2 read rate (one reduction over a 16 MB buffer held in L2): "
-            f"{l2_rate / 1e12:.4f} TB/s")
         for name, values, max_iters, timed in cases:
             shape = list(values.shape)
-            got, rounds = cau.auction_assign(values, max_iters=max_iters,
-                                             return_rounds=True)
+            got, rounds, scans = cau.auction_assign(
+                values, max_iters=max_iters, return_rounds=True,
+                return_scans=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want, want_rounds, bids = auction_assign_reference(
+            want, want_rounds, bids, want_scans = auction_assign_reference(
                 values, max_iters=max_iters, return_rounds=True,
-                return_bids=True)
+                return_bids=True, return_scans=True)
             torch.cuda.synchronize()
             plain_once_ms = 1e3 * (time.perf_counter() - t0)
             if not (torch.equal(got, want)
-                    and torch.equal(rounds.long(), want_rounds)):
-                fail(f"auction_assign {name} {shape}: col4row differs from "
-                     "the plain version's")
+                    and torch.equal(rounds.long(), want_rounds)
+                    and torch.equal(scans.long(), want_scans)):
+                fail(f"auction_assign {name} {shape}: col4row, rounds or "
+                     "scans differ from the plain version's")
+            # ten calls queued a timed window (the price wars one): the
+            # kernel's time, not the host's launch; one call a window too,
+            # as the first design was timed
             kernel_ms = time_ms(lambda: cau.auction_assign(
-                values, max_iters=max_iters))
-            line = (f"auction_assign {name} {shape}: col4row equal, rounds "
-                    f"max {int(rounds.max())} mean "
-                    f"{rounds.float().mean().item():.2f}, unassigned "
-                    f"{int((got < 0).sum())}, ms {kernel_ms:.4f}, the "
-                    f"plain version's one call {plain_once_ms:.3f} ms")
+                values, max_iters=max_iters),
+                inner=1 if values.shape[2] == 5 else 10)
+            one_call_ms = time_ms(lambda: cau.auction_assign(
+                values, max_iters=max_iters)) if timed else None
+            rounds_mean = rounds.float().mean().item()
+            scans_mean = scans.float().mean().item()
+            line = (f"auction_assign {name} {shape}: col4row, rounds and "
+                    f"scans equal, rounds max {int(rounds.max())} mean "
+                    f"{rounds_mean:.2f}, scans a task {scans_mean:.2f} "
+                    f"(bids {bids.float().mean().item():.2f}), unassigned "
+                    f"{int((got < 0).sum())}, ms {kernel_ms:.4f}"
+                    + (f" (one call a window {one_call_ms:.4f}, the first "
+                       "design's so, quoted from PERF.md: "
+                       f"{AUCTION_FIRST_DESIGN_MS[name]:.4f})"
+                       if name in AUCTION_FIRST_DESIGN_MS else "")
+                    + f", the plain version's one call {plain_once_ms:.3f} ms")
+            if name == "zero-shot batch" and not (
+                    scans_mean <= shape[1] + rounds_mean):
+                fail(f"auction_assign zero-shot batch: {scans_mean} scans a "
+                     f"task, more than R + rounds ({shape[1]} + "
+                     f"{rounds_mean})")
             if timed:
-                n_bids = int(bids.sum())
-                c = shape[2]
-                first = 4 * values.numel()          # the first round's reads
-                rereads = max(4 * n_bids * c - first, 0)
+                n_bids, n_scans = int(bids.sum()), int(scans.sum())
+                n, r, c = shape
                 # the plain version's price wars take seconds a call: one
                 # call, host clock; the others CUDA events, median of 3
-                plain_ms = plain_once_ms if wars is values else time_ms(
+                plain_ms = plain_once_ms if c == 5 else time_ms(
                     lambda: auction_assign_reference(
                         values, max_iters=max_iters), runs=3)
                 one = {"ms": kernel_ms, "plain_ms": plain_ms,
+                       "ms_one_call": one_call_ms,
                        "rounds_max": int(rounds.max()),
-                       "rounds_mean": rounds.float().mean().item(),
-                       "bids": n_bids, "max_abs_err": 0.0,
-                       # each bid reads its person's value row once: C fp32
-                       # and a subtract and a compare an element
-                       **_bound(2 * n_bids * c, 4 * n_bids * c, PEAK_FP32_S),
-                       "bound_l2_ms": max(
-                           2 * n_bids * c / PEAK_FP32_S,
-                           first / PEAK_BYTES_S + rereads / l2_rate) * 1e3,
-                       "l2_bytes_s": l2_rate}
+                       "rounds_mean": rounds_mean, "bids": n_bids,
+                       "scans": n_scans, "max_abs_err": 0.0,
+                       # values read once, col4row written once; a subtract
+                       # and a compare an element of every scanned row
+                       **_bound(2 * n_scans * c, 4 * n * r * c + 4 * n * r,
+                                PEAK_FP32_S)}
+                # the first design's figure, every bid's row read: logged,
+                # not a bound of this kernel
+                rereads_ms = 4 * n_bids * c / PEAK_BYTES_S * 1e3
                 line += (f"; plain_ms {one['plain_ms']:.4f} bound_ms "
-                         f"{one['bound_ms']:.6f} ({one['bound_by']}: "
-                         f"{n_bids} bids of {c} values) bound_l2_ms "
-                         f"{one['bound_l2_ms']:.6f} ({first} bytes from "
-                         f"HBM, {rereads} re-read from L2)")
+                         f"{one['bound_ms']:.6f} ({one['bound_by']}: the "
+                         f"values once, {n_scans} scans of {c} columns) "
+                         f"bound_rereads_ms {rereads_ms:.6f} "
+                         f"({n_bids} bids' rows)")
+                if name == "zero-shot batch":
+                    # a round's time: the launch in full less the launch
+                    # that stops after its first round, each queued behind
+                    # a spinning kernel (a launch of the first round alone
+                    # is shorter than the host's work between two calls)
+                    full_ms, first_ms = (queued_ms(
+                        lambda: cau.auction_assign(values, max_iters=m))
+                        for m in (max_iters, 1))
+                    between = max(int(rounds.max()) - 1, 1)
+                    one.update(ms_first_round=first_ms,
+                               ms_per_round=(full_ms - first_ms) / between)
+                    line += (f"; queued behind a spin: in full "
+                             f"{full_ms:.4f} ms, "
+                             f"max_iters 1 {first_ms:.4f} ms, so "
+                             f"{1e3 * one['ms_per_round']:.3f} us a round "
+                             f"over the {between} rounds after the first of "
+                             "the slowest task")
                 if rec is None:
                     rec = dict(one, library_ms=None, cases={})
                 rec["cases"][name] = one
@@ -2184,7 +2284,8 @@ def main():
                                          "fp32_path_launches",
                                          "visual_path_launches",
                                          "methods_launches", "rounds_max",
-                                         "rounds_mean", "bids", "bound_l2_ms")
+                                         "rounds_mean", "bids", "scans",
+                                         "ms_per_round")
                if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)

@@ -20,6 +20,13 @@ read on the host every ``AUCTION_CHECK_EVERY`` rounds; the rounds past the
 stop change nothing. It is the tests' reference and the CPU path of
 ``ops.cuda_auction.auction_assign``, whose kernel runs the whole loop on the
 card in one launch.
+
+Rows that are equal bit for bit (``row_groups``) make the same bid in every
+round, and a tie goes to the lowest person, so only the lowest unassigned
+member of each group can win: the kernel lets that one bid alone, which
+changes no winner, price or round. ``return_scans`` counts the rows it
+scans that way, while the plain version itself still lets every
+unassigned person bid.
 """
 
 from __future__ import annotations
@@ -37,15 +44,33 @@ def _assigned(owner, rows):
     return (owner[:, None, :] == rows[None, :, None]).any(-1)
 
 
+def row_groups(values):
+    """values [N, R, C] fp32 -> [N, R] int32: for each row the lowest row
+    index of its task whose values are equal to it bit for bit (compared as
+    int32, so a row of +0.0 and one of -0.0 are not grouped)."""
+    n, r, c = values.shape
+    bits = values.contiguous().view(torch.int32).reshape(n * r, c)
+    task = torch.arange(n, dtype=torch.int32, device=values.device)
+    keyed = torch.cat([task.repeat_interleave(r)[:, None], bits], 1)
+    _, group = torch.unique(keyed, dim=0, return_inverse=True)
+    row = torch.arange(r, device=values.device).repeat(n)
+    lowest = torch.full((n * r,), r, dtype=torch.int64, device=values.device)
+    lowest = lowest.scatter_reduce(0, group, row, "amin")
+    return lowest[group].view(n, r).to(torch.int32)
+
+
 def auction_assign_reference(values, eps: float = 1e-5,
                              max_iters: int = 200_000,
                              return_rounds: bool = False,
-                             return_bids: bool = False):
+                             return_bids: bool = False,
+                             return_scans: bool = False):
     """Batched max-value assignment: values [N, R, C] fp32 -> col4row
     [N, R] int32, -1 for a person left unassigned when ``max_iters`` rounds
     ran out. With ``return_rounds`` also the rounds each task ran [N]; with
     ``return_bids`` also the bids each task made over its rounds [N] (each
-    reads its person's value row once: the data the kernel must move)."""
+    reads its person's value row once); with ``return_scans`` also the rows
+    the kernel scans over its rounds [N]: in each round, the groups of
+    ``row_groups`` with an unassigned member."""
     if values.dtype != torch.float32 or values.dim() != 3:
         raise ValueError("auction_assign_reference: values must be [N, R, C] "
                          f"float32, got {tuple(values.shape)} {values.dtype}")
@@ -59,6 +84,8 @@ def auction_assign_reference(values, eps: float = 1e-5,
     owner = torch.full((n, c), -1, dtype=torch.int32, device=dev)
     rounds = torch.zeros(n, dtype=torch.int64, device=dev)
     bids_made = torch.zeros(n, dtype=torch.int64, device=dev)
+    scans = torch.zeros(n, dtype=torch.int64, device=dev)
+    lead = row_groups(values).long() if return_scans else None
 
     def running(owner, rounds):
         return ~_assigned(owner, rows).all(1) & (rounds < max_iters)
@@ -84,11 +111,17 @@ def auction_assign_reference(values, eps: float = 1e-5,
             owner = torch.where(has_bid, winner.to(torch.int32), owner)
             rounds = rounds + active
             bids_made = bids_made + (~assigned).sum(1) * active
+            if return_scans:
+                open_members = torch.zeros((n, r), dtype=torch.int64,
+                                           device=dev).scatter_add_(
+                    1, lead, (~assigned).long())
+                scans = scans + (open_members > 0).sum(1) * active
             active = running(owner, rounds)
 
     owned = owner[:, None, :] == rows[None, :, None]            # [N, R, C]
     col4row = torch.where(owned.any(-1), owned.to(torch.int32).argmax(-1),
                           -1).to(torch.int32)
     out = ((col4row,) + ((rounds,) if return_rounds else ())
-           + ((bids_made,) if return_bids else ()))
+           + ((bids_made,) if return_bids else ())
+           + ((scans,) if return_scans else ()))
     return out if len(out) > 1 else col4row
