@@ -132,7 +132,21 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    ``use_softmax_feature False`` (EM-Dirichlet must refuse) and of
    PADDLE, BD-CSPN, LaplacianShot and alpha-TIM, each accuracy finite and
    in (0, 1] (visual_methods). Each of phases 8 (the visual call) and
-   10-12 logs the card's name and power limit.
+   10-12 logs the card's name and power limit;
+13. task data parallelism (parallel/; ``run_task_parallel``): in a task
+   group of one rank (NCCL, in this process), soft EM-Dirichlet ``pallas``
+   (K1) and ``auto`` (its Newton criterion gathered over the group every
+   step) on the blocking and fused routes (the auction), hard
+   ``mm_pallas`` (K2) and alpha-TIM ``pallas`` fp32 (K3) through the CLI,
+   batch for batch equal to the runs without a group, with both ms per
+   task and the collectives per batch (task_parallel_world1); then two
+   ranks spawned on this card (NCCL, or gloo where NCCL refuses two ranks
+   a card, its message logged): a zero-shot batch of ``pallas`` and of
+   ``auto``, half the tasks a rank, equal to the single-process batch, and
+   RN50 bf16 extraction (K5, K4a) over 1024 images, half of every batch a
+   rank, its cache's top-1 labels equal to the single-process cache's
+   (task_parallel_two_ranks). The kernels' launches in the group runs are
+   ``task_parallel_launches`` in the kernels line.
 
 With random weights an accuracy only has to be finite and in [0, 1].
 
@@ -297,6 +311,10 @@ FUSED_CHECKED = ("soft_kmeans", "em_gaussian_cov")
 # (1 / sqrt(d) a coordinate), L2-normalized
 VISUAL_DIM = 1024
 VISUAL_NOISE = VISUAL_DIM ** -0.5
+# phase task_parallel: batches of each zero-shot run in the world-1 group,
+# and the images of the two-rank extraction (two batches of EXTRACT_BATCH)
+TP_BATCHES = 3
+TP_IMAGES = 2 * EXTRACT_BATCH
 
 
 def log(msg):
@@ -551,10 +569,12 @@ def write_imagenet_cache(root, split, per_class, seed):
 
 
 def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
-                  window=None, host_fallbacks=0, min_accuracy=MIN_ACCURACY):
-    """The port's CLI entry, in process, with every kernel count set to 0
-    just before; returns (accuracy, ms/task over the batches after the
-    first, launches by kernel, host syncs per batch). Each blocking batch is
+                  window=None, host_fallbacks=0, min_accuracy=MIN_ACCURACY,
+                  group=None):
+    """The port's CLI entry, in process (``cli.run`` as a rank of
+    ``group``, a task group, when one is given), with every kernel count
+    set to 0 just before; returns (accuracy, ms/task over the batches after
+    the first, launches by kernel, host syncs per batch). Each blocking batch is
     logged with its own counts (LaplacianShot's own ``run_task`` too);
     ``on_batch(method, logs)`` sees each one. Fails unless exactly
     ``host_fallbacks`` batches had their matching solved on the host after
@@ -631,9 +651,12 @@ def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
     for cls, run_task in run_tasks.items():
         cls.run_task = logged(run_task)
     DeferredTaskResult.finalize = logged_finalize
+    argv = ["--config-root", os.path.join(HERE, "config"), "--opts", *opts]
     try:
-        acc, sec_per_task = cli.main(
-            ["--config-root", os.path.join(HERE, "config"), "--opts", *opts])
+        if group is None:
+            acc, sec_per_task = cli.main(argv)
+        else:
+            acc, sec_per_task = cli.run(cli.parse_args(argv), group)
     finally:
         for cls, run_task in run_tasks.items():
             cls.run_task = run_task
@@ -651,7 +674,11 @@ def run_main_path(root, label, opts, number_tasks, counters, on_batch=None,
              f"rounds, not {host_fallbacks}")
     if not (acc > min_accuracy and acc <= 1.0):
         fail(f"{label}: accuracy {acc} outside ({min_accuracy}, 1]")
-    if window is not None:
+    if window is not None and n_batches == 1:
+        window.update(batches=batches, deferred=len(deferred),
+                      launches=launches,
+                      evaluator_ms_per_task=1e3 * sec_per_task)
+    elif window is not None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - steady["t0"]
         steady_batches = n_batches - 1
@@ -944,9 +971,9 @@ def run_few_shot(root, counters, records, launches):
         update_alpha, full_width = tem.update_alpha, []
 
         def kept_update_alpha(alpha0, y_cst, iter_mm=1000, solver="mm",
-                              row_mask=None):
+                              row_mask=None, share=None):
             out = update_alpha(alpha0, y_cst, iter_mm=iter_mm, solver=solver,
-                               row_mask=row_mask)
+                               row_mask=row_mask, share=share)
             if alpha0.shape[1] == N_CLASS:
                 full_width.append((alpha0.clone(), y_cst.clone(), out.clone(),
                                    {"iter_mm": iter_mm}))
@@ -2082,6 +2109,294 @@ def run_extraction(root, counters, records, launches):
         del model, first
         torch.cuda.empty_cache()
 
+def _tp_zero_shot_batch(root, solver):
+    """(args, the whole task dict) of one zero-shot batch at the protocol
+    (N_TASK tasks x N_QUERY queries x K = N_CLASS) drawn from the synthetic
+    test cache by the evaluator's sampler with SEED: the same batch in
+    every process that asks."""
+    import numpy as np
+
+    from transductive_clip_tpu_torch import cli
+    from transductive_clip_tpu_torch.features.cache import (
+        load_feature_cache,
+        softmax_cache_path,
+    )
+    from transductive_clip_tpu_torch.tasks import (
+        CategoriesSamplerZeroShot,
+        SamplerQueryZeroShot,
+    )
+
+    args = cli.parse_args([
+        "--config-root", os.path.join(HERE, "config"), "--opts", "dataset",
+        "imagenet", "shots", "0", "method", "em_dirichlet",
+        "dirichlet_solver", solver, "n_query", str(N_QUERY), "batch_size",
+        str(N_TASK), "root", root, "matching_backend", "device"])
+    feats, labels = load_feature_cache(softmax_cache_path(
+        "imagenet", "test", args.backbone, args.T, root=root))
+    sampler = CategoriesSamplerZeroShot(
+        N_TASK, args.k_eff, args.n_class, N_QUERY, force_query_size=True,
+        rng=np.random.default_rng(SEED))
+    sampler.create_list_classes(labels)
+    idx = np.stack(list(SamplerQueryZeroShot(sampler)))
+    return args, {"x_q": feats[idx], "y_q": labels[idx][..., None]}
+
+
+def _tp_extraction_inputs(root, dataset_path):
+    """(model args, dataset, labels) of the two-rank extraction: the first
+    TP_IMAGES images of the EuroSAT-shaped split."""
+    import numpy as np
+
+    from transductive_clip_tpu_torch.core.config import CfgNode
+    from transductive_clip_tpu_torch.data import build_dataset
+
+    dataset = build_dataset("eurosat", dataset_path)
+    labels = np.array([d.label for d in dataset.test[:TP_IMAGES]], np.int64)
+    return (CfgNode(dict(dataset="eurosat", backbone="RN50", root=root,
+                         dataset_path=dataset_path)), dataset, labels)
+
+
+def _kernel_counters():
+    """name -> wrapper of every kernel (each counts its launches)."""
+    from transductive_clip_tpu_torch.ops import cuda_attention as ca
+    from transductive_clip_tpu_torch.ops import cuda_auction as cau
+    from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
+    from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+    from transductive_clip_tpu_torch.ops import cuda_tim as ct
+
+    return {"dirichlet_row_solve": cd.dirichlet_row_solve,
+            "mm_row_solve": cd.mm_row_solve,
+            "tim_support_grad": ct.tim_support_grad,
+            "attention_rows": ca.attention_rows,
+            "attention_blocked": ca.attention_blocked,
+            "fused_identity_bottleneck": cb.fused_identity_bottleneck,
+            "auction_assign": cau.auction_assign}
+
+
+def _tp_nccl_probe(group):
+    """One NCCL all-reduce between two ranks that share a card: "ok", or
+    the error NCCL raised, returned so that the parent can log it and run
+    the group on gloo instead."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        t = torch.ones(1, device=group.device)
+        dist.all_reduce(t, group=group.pg)
+        torch.cuda.synchronize(group.device)
+        return "ok" if t.item() == group.world else f"sum {t.item()}"
+    except RuntimeError as e:   # DistBackendError is one
+        return f"{type(e).__name__}: {e}"
+
+
+def _tp_two_ranks(group, root, dataset_path):
+    """One rank of phase task_parallel_two_ranks (both on cuda:0): every
+    kernel count set to 0, then one zero-shot batch of soft EM-Dirichlet
+    with 'pallas' and with 'auto' through the method's run_task on this
+    rank's half of the tasks, then RN50 bf16 extraction over TP_IMAGES
+    images, each rank encoding its half of every batch of EXTRACT_BATCH,
+    rank 0 writing the T = 30 softmax cache. Rank 0 returns the whole
+    batches' predictions, accuracies and times, the cache's path and the
+    launches summed over both ranks."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch.eval.extraction import (
+        extract_to_caches,
+        get_text_features,
+    )
+    from transductive_clip_tpu_torch.features.cache import softmax_cache_path
+    from transductive_clip_tpu_torch.methods import get_zero_shot_method
+    from transductive_clip_tpu_torch.models.clip import load
+    from transductive_clip_tpu_torch.parallel import (
+        barrier,
+        gather_host,
+        shard_task_batch,
+    )
+
+    counters = _kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = {}
+    for solver in ("pallas", "auto"):
+        args, batch = _tp_zero_shot_batch(root, solver)
+        method = get_zero_shot_method(args.name_method, device=group.device,
+                                      args=args).set_task_group(group)
+        logs = method.run_task(shard_task_batch(batch, group))
+        out[solver] = (logs["preds"], logs["acc"], logs["timestamps"])
+    args, dataset, labels = _tp_extraction_inputs(
+        os.path.join(root, "tp_ranks"), dataset_path)
+    model, _ = load("RN50", fused_resnet=True, device=group.device)
+    model.set_task_group(group)
+    torch.cuda.synchronize(group.device)
+    t0 = time.perf_counter()
+    text = get_text_features(args, model, dataset.classnames,
+                             dataset.template, group=group)
+    path = softmax_cache_path("eurosat", "test", "RN50", 30, root=args.root)
+    emb, _ = extract_to_caches(
+        model, pixel_batches(labels, 224, EXTRACT_BATCH, SEED), [(30, path)],
+        text, write=group.rank == 0)
+    seconds = time.perf_counter() - t0
+    barrier(group)
+    launches = {name: w.launches for name, w in counters.items()}
+    every = gather_host(launches, group)
+    out.update(path=path, seconds=seconds, finite=bool(np.isfinite(emb).all()),
+               launches={name: sum(r[name] for r in every)
+                         for name in launches})
+    return out
+
+
+def run_task_parallel(root, counters, records):
+    """Phases task_parallel_world1 and task_parallel_two_ranks: the port's
+    task data parallelism (parallel/) on the card.
+
+    World 1: an NCCL group of one rank in this process; soft EM-Dirichlet
+    with 'pallas' (K1) and 'auto' ('minka': its criterion gathered over the
+    group at every Newton step), TP_BATCHES batches each on the blocking
+    and the fused route (the auction), hard 'mm_pallas' (K2) and alpha-TIM
+    'pallas' fp32 (K3, TIM_ITER steps) one batch each, all through the CLI
+    (``cli.run`` with the group), each held batch for batch against the
+    same run without a group (predictions and accuracies equal), with both
+    runs' ms per task and the group's collectives per batch. Two ranks on
+    this one card (spawned; NCCL first, gloo where NCCL refuses, its
+    message logged): one zero-shot batch of 'pallas' and of 'auto', half
+    the tasks a rank, equal to the single-process batch; then RN50 bf16
+    extraction (K5, K4a) over TP_IMAGES images, half of every batch a rank,
+    its softmax cache's top-1 labels equal to the single-process cache's
+    (a run whose batches are the ranks' halves, so the towers run at one
+    shape in both) and its values within FEATURE_LIMIT["RN50"]. Every
+    kernel count is set to 0 before each run; the kernels launched in the
+    group runs are recorded as ``task_parallel_launches``."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch.eval.extraction import (
+        extract_to_caches,
+        get_text_features,
+    )
+    from transductive_clip_tpu_torch.features.cache import (
+        load_feature_cache,
+        softmax_cache_path,
+    )
+    from transductive_clip_tpu_torch.methods import get_zero_shot_method
+    from transductive_clip_tpu_torch.models.clip import load
+    from transductive_clip_tpu_torch.parallel import (
+        destroy_task_group,
+        make_task_group,
+        spawn_ranks,
+    )
+    from transductive_clip_tpu_torch.parallel import task_parallel as tp
+
+    dp_launches = {name: 0 for name in counters}
+    zs = ["shots", "0", "method", "em_dirichlet"]
+    runs = [(f"em_dirichlet {solver} {route}",
+             zs + ZS_ROUTES[route + "_device"] + ["dirichlet_solver", solver],
+             TP_BATCHES * N_TASK)
+            for solver in ("pallas", "auto") for route in ("blocking", "fused")]
+    runs += [("hard_em_dirichlet mm_pallas", ["shots", "0", "method",
+              "hard_em_dirichlet", "dirichlet_solver", "mm_pallas",
+              *BLOCKING], N_TASK),
+             ("alpha_tim pallas", ["shots", str(SHOTS), "method", "alpha_tim",
+              "tim_grad_impl", "pallas", "iter", str(TIM_ITER), *BLOCKING],
+              N_TASK)]
+    with Phase("task_parallel_world1"):
+        group = make_task_group(0, 1, os.path.join(root, "tp_store"),
+                                device="cuda:0")
+        log(f"task group: world 1, backend "
+            f"{torch.distributed.get_backend(group.pg)} on {group.device}")
+        try:
+            for label, opts, n in runs:
+                alone, grouped = {}, {}
+                run_main_path(root, label + " no group", opts, n, counters,
+                              window=alone)
+                calls = tp.all_reduce.calls + tp.gather_host.calls
+                run_main_path(root, label + " world 1",
+                              opts + ["data_parallel", "True"], n, counters,
+                              window=grouped, group=group)
+                calls = tp.all_reduce.calls + tp.gather_host.calls - calls
+                _same_batches(f"task_parallel {label}", grouped["batches"],
+                              alone["batches"])
+                for name, got in grouped["launches"].items():
+                    dp_launches[name] += got
+                log(f"task_parallel {label}: batches equal; ms_per_task "
+                    f"{alone['evaluator_ms_per_task']:.4f} without a group, "
+                    f"{grouped['evaluator_ms_per_task']:.4f} in a group of "
+                    f"1; collectives per batch {calls / (n // N_TASK):.1f}")
+        finally:
+            destroy_task_group(group)
+        for name in ("dirichlet_row_solve", "mm_row_solve",
+                     "tim_support_grad", "auction_assign"):
+            if dp_launches[name] <= 0:
+                fail(f"the world-1 group runs launched {name} 0 times")
+        torch.cuda.empty_cache()
+
+    with Phase("task_parallel_two_ranks"):
+        dataset_path = os.path.join(root, "eurosat")
+        try:
+            nccl = spawn_ranks(_tp_nccl_probe, 2, device="cuda:0",
+                               backend="nccl", timeout=180)
+        except (RuntimeError, TimeoutError) as e:
+            # NCCL's refusal is expected with two ranks on one card: the
+            # group then runs on gloo (the ranks' output above has it)
+            nccl = f"{type(e).__name__}: {e}"
+        backend = "nccl" if nccl == "ok" else "gloo"
+        log(f"two ranks on one card: NCCL {nccl!r}; the group runs on "
+            f"{backend}")
+        got = spawn_ranks(_tp_two_ranks, 2, (root, dataset_path),
+                          device="cuda:0", backend=backend, timeout=900)
+        for solver in ("pallas", "auto"):
+            args, batch = _tp_zero_shot_batch(root, solver)
+            logs = get_zero_shot_method(args.name_method, args=args).run_task(
+                batch)
+            preds, acc, sec = got[solver]
+            if not (np.array_equal(preds, logs["preds"])
+                    and np.array_equal(acc, logs["acc"])):
+                fail(f"task_parallel two ranks {solver}: the batch differs "
+                     "from the single-process batch")
+            log(f"task_parallel two ranks em_dirichlet {solver}: batch equal "
+                f"(accuracy {acc.mean():.6f}); ms_per_task {1e3 * sec:.4f} "
+                f"on 2 ranks sharing the card (first batch), "
+                f"{1e3 * logs['timestamps']:.4f} alone (first batch)")
+        args, dataset, labels = _tp_extraction_inputs(
+            os.path.join(root, "tp_single"), dataset_path)
+        model, _ = load("RN50", fused_resnet=True)
+        text = get_text_features(args, model, dataset.classnames,
+                                 dataset.template)
+        path = softmax_cache_path("eurosat", "test", "RN50", 30,
+                                  root=args.root)
+
+        def halves(batches):
+            for images, y in batches:
+                half = len(y) // 2
+                yield images[:half], y[:half]
+                yield images[half:], y[half:]
+
+        extract_to_caches(model, halves(pixel_batches(
+            labels, 224, EXTRACT_BATCH, SEED)), [(30, path)], text)
+        del model
+        single, _ = load_feature_cache(path)
+        ranks, ranks_labels = load_feature_cache(got["path"])
+        diff = float(np.abs(ranks - single).max())
+        top1 = (ranks.argmax(-1) == single.argmax(-1)).mean()
+        log(f"task_parallel two ranks RN50 extraction: {len(labels)} images "
+            f"{got['seconds']:.3f} s; top-1 agreement {top1:.6f}, max abs "
+            f"difference {diff:.3e} against the single-process cache; "
+            f"launches {got['launches']}")
+        if not (got["finite"] and top1 == 1.0
+                and np.array_equal(ranks_labels, labels)
+                and diff <= FEATURE_LIMIT["RN50"]):
+            fail("task_parallel two-rank extraction differs from the "
+                 "single-process cache")
+        for name, n in got["launches"].items():
+            dp_launches[name] += n
+        for name in ("dirichlet_row_solve", "auction_assign",
+                     "fused_identity_bottleneck", "attention_rows"):
+            if got["launches"][name] <= 0:
+                fail(f"the two-rank runs launched {name} 0 times")
+        torch.cuda.empty_cache()
+    for name, n in dp_launches.items():
+        records[name]["task_parallel_launches"] = n
+    log(f"task_parallel launches {dp_launches}")
+
 
 def main():
     import torch
@@ -2256,6 +2571,7 @@ def main():
             for solver in ("pallas", "auto"):
                 profile_batch(root, solver)
         run_extraction(root, counters, records, launches)
+        run_task_parallel(root, counters, records)
 
     listing = []
     for name, (_, _, replaces, source) in kernels.items():
@@ -2283,7 +2599,9 @@ def main():
                                          "vit_path_launches",
                                          "fp32_path_launches",
                                          "visual_path_launches",
-                                         "methods_launches", "rounds_max",
+                                         "methods_launches",
+                                         "task_parallel_launches",
+                                         "rounds_max",
                                          "rounds_mean", "bids", "scans",
                                          "ms_per_round")
                if key in rec},

@@ -225,13 +225,19 @@ def test_cli_few_shot_path(tmp_path, monkeypatch, rng):
 
 @pytest.mark.parametrize("key,value", [("data_parallel", True)])
 def test_unported_evaluator_options_raise(rng, key, value):
+    """JAX's one-device rule: ``data_parallel`` in one process with no
+    task group runs the single-device path and gives exactly the
+    ``data_parallel False`` result."""
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="em_dirichlet",
-                                      shots=2, number_tasks=2, batch_size=2,
+                                      shots=2, number_tasks=4, batch_size=2,
                                       n_query=30), config_root=CONFIG_ROOT)
-    cfg[key] = value
     (fq, lq), (fs, ls) = _write_caches(rng).values()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EvaluatorFewShot(device="cpu", args=cfg).evaluate_tasks(fs, ls, fq, lq)
+    want = EvaluatorFewShot(device="cpu", args=cfg).evaluate_tasks(
+        fs, ls, fq, lq)[0]
+    cfg[key] = value
+    got = EvaluatorFewShot(device="cpu", args=cfg).evaluate_tasks(
+        fs, ls, fq, lq)[0]
+    assert got == want
 
 
 def test_registry_and_pipelines_name_the_roadmap_item():

@@ -133,13 +133,18 @@ def test_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch, rng):
 
 @pytest.mark.parametrize("key,value", [("data_parallel", True)])
 def test_unported_evaluator_options_raise(rng, key, value):
+    """JAX's one-device rule (its ``_maybe_task_mesh``): ``data_parallel``
+    in one process with no task group runs the single-device path and
+    gives exactly the ``data_parallel False`` result."""
     cfg = load_full_config(opts=_opts(dataset="eurosat", method="em_dirichlet",
-                                      shots=0, number_tasks=2, batch_size=2,
+                                      shots=0, number_tasks=4, batch_size=2,
                                       n_query=30), config_root=CONFIG_ROOT)
-    cfg[key] = value
     feats, labels = synth_features(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EvaluatorZeroShot(device="cpu", args=cfg).evaluate_tasks(feats, labels)
+    want = EvaluatorZeroShot(device="cpu", args=cfg).evaluate_tasks(
+        feats, labels)[0]
+    cfg[key] = value
+    ev = EvaluatorZeroShot(device="cpu", args=cfg)
+    assert ev.evaluate_tasks(feats, labels)[0] == want
 
 
 def test_registry_names_the_roadmap_item():

@@ -191,10 +191,21 @@ def test_missing_model_raises(image_dataset):
         ensure_features(_cfg(CfgNode, image_dataset, True), None, None)
 
 
-def test_data_parallel_raises(image_dataset, models):
-    cfg = _cfg(CfgNode, image_dataset, True, data_parallel=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ensure_features(cfg, models[1], make_preprocess(32, "uint8"))
+def test_data_parallel_raises(image_dataset, bpe, models):
+    """JAX's one-device rule: ``data_parallel`` in one process with no task
+    group extracts on the single-device path, the caches equal to the
+    ``data_parallel False`` ones."""
+    for side, dp in (("single", False), ("dp", True)):
+        ensure_features(_cfg(CfgNode, image_dataset, True, root=side,
+                             data_parallel=dp),
+                        models[1], make_preprocess(32, "uint8"))
+    names = sorted(os.listdir(_feature_dir("single")))
+    assert names == sorted(os.listdir(_feature_dir("dp"))) and names
+    for name in names:
+        want, got = (load_pickle(os.path.join(_feature_dir(side), name))
+                     for side in ("single", "dp"))
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
 
 
 def test_data_layer_matches_jax(image_dataset):

@@ -8,7 +8,18 @@ reference: main.py):
         method alpha_tim tim_grad_impl pallas number_tasks 1000 batch_size 100
 
 shots > 0 runs the few-shot evaluator, shots == 0 the zero-shot one. It runs
-on ``cuda:{device}`` and raises without a CUDA device. The CLIP model is
+on ``cuda:{device}`` and raises without a CUDA device.
+
+``data_parallel True`` spreads every task batch (and extraction's image
+batches) over all local cards, one process per card:
+
+    torchrun --nproc_per_node 8 -m transductive_clip_tpu_torch.cli \
+        --opts ... data_parallel True
+
+joins the group on ``cuda:{LOCAL_RANK}``; started plainly with several
+visible cards the CLI spawns one worker per card itself
+(``launch_workers``); with one card it runs the single-device path. The
+CLIP model is
 loaded only when a feature cache is missing: then the towers extract the
 features from the dataset's images (the checkpoint from
 ``$CLIP_WEIGHTS_DIR``, the BPE merges from ``$CLIP_BPE_PATH``; decoding the
@@ -27,6 +38,13 @@ import torch
 from .core.config import load_full_config
 from .core.logger import Logger, get_log_file
 from .eval import EvaluatorFewShot, EvaluatorZeroShot
+from .eval.zero_shot import _parse_flag
+from .parallel import (
+    destroy_task_group,
+    make_task_group,
+    resolve_tp,
+    spawn_ranks,
+)
 
 
 def parse_args(argv=None):
@@ -45,7 +63,6 @@ def maybe_load_clip(args, device=None):
     boolean) as the JAX CLI does. ``device``: ``cuda:{args.device}`` when
     None, or what the caller passes."""
     from .eval.extraction import text_cache_path
-    from .eval.zero_shot import _parse_flag
 
     where = {} if device is None else {"device": device}
     if args.shots > 0:
@@ -85,22 +102,60 @@ def maybe_load_clip(args, device=None):
                      fused_resnet=fused, device=device)
 
 
-def main(argv=None):
-    """Run one evaluation; returns (mean accuracy, mean seconds per task)."""
-    args = parse_args(argv)
+def run(args, group=None):
+    """One evaluation of the parsed ``args``, as a rank of ``group`` (a
+    parallel.TaskGroup, on its device) or alone; returns (mean accuracy,
+    mean seconds per task). Only rank 0 writes a log file."""
     if args.seed is not None:
         random.seed(args.seed)
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
 
-    log_file = get_log_file(
-        log_path=args.log_path, dataset=args.dataset, method=args.name_method
-    )
-    Logger(__name__, log_file)
-    model, preprocess = maybe_load_clip(args)
+    log_file = None
+    if group is None or group.rank == 0:
+        log_file = get_log_file(log_path=args.log_path, dataset=args.dataset,
+                                method=args.name_method)
+        Logger(__name__, log_file)
+    where = {} if group is None else {"device": group.device, "group": group}
+    model, preprocess = maybe_load_clip(
+        args, device=None if group is None else group.device)
     evaluator_cls = EvaluatorFewShot if args.shots > 0 else EvaluatorZeroShot
-    evaluator = evaluator_cls(args=args, log_file=log_file)
+    evaluator = evaluator_cls(args=args, log_file=log_file, **where)
     return evaluator.run_full_evaluation(model=model, preprocess=preprocess)
+
+
+def _run_rank(group, argv):
+    return run(parse_args(argv), group)
+
+
+def launch_workers(argv, world: int, device=None):
+    """Spawn ``world`` workers (start method ``spawn``, ``FileStore``
+    rendezvous), worker r on ``cuda:{r}`` — or all on ``device`` (the tests
+    pass ``"cpu"``) — each running the evaluation of ``argv`` as a rank of
+    one task group; returns rank 0's (mean accuracy, mean seconds per
+    task)."""
+    return spawn_ranks(_run_rank, world, (argv,), device=device)
+
+
+def main(argv=None):
+    """Run one evaluation; returns (mean accuracy, mean seconds per task).
+    With ``data_parallel True``: under ``torchrun`` this process joins the
+    task group on ``cuda:{LOCAL_RANK}``; started plainly with more than one
+    visible card it spawns a worker per card (``launch_workers``); with one
+    card it runs the single-device path."""
+    args = parse_args(argv)
+    if _parse_flag(args.get("data_parallel", False), "data_parallel"):
+        resolve_tp(args.get("tp", 0))
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            group = make_task_group()
+            try:
+                return run(args, group)
+            finally:
+                destroy_task_group(group)
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            return launch_workers(argv, n_cards)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,13 @@ Kept apart from the evaluators, so that cache-only runs never import the
 model or data layers. :func:`extract_to_caches` is the part after the
 decode (encode the batches, normalize, write one cache per temperature); it
 takes any iterable of ``(uint8 or float32 NHWC batch, labels)``.
+
+With ``data_parallel`` and a task group (parallel/) extraction is
+batch-data-parallel: each rank encodes its share of every image batch
+(``TorchCLIP.set_task_group``), every rank gets the whole batch's
+embeddings, rank 0 writes the caches and the ranks wait for it. The text
+prototypes are computed on every rank (identical, so nothing is
+exchanged) and written by rank 0.
 """
 
 from __future__ import annotations
@@ -21,8 +28,8 @@ from ..features.cache import (
     softmax_cache_path,
     visual_cache_path,
 )
-from ..methods.base import unported
 from ..ops.common import to_host
+from ..parallel import barrier
 
 
 def _require_model(model, what):
@@ -44,10 +51,12 @@ def text_cache_path(args):
     )
 
 
-def get_text_features(args, model, classnames=None, template=None):
+def get_text_features(args, model, classnames=None, template=None,
+                      group=None):
     """L2-normalized CLIP text prototypes [n_class, embed_dim] (numpy fp32)
     for the dataset's classnames (reference: src/utils.py:363-377). Cached
-    per dataset and backbone."""
+    per dataset and backbone. Under a task ``group`` every rank computes
+    them and rank 0 writes the cache, once every rank has looked for it."""
     cache = text_cache_path(args)
     if os.path.exists(cache):
         from ..core.io import load_pickle
@@ -67,18 +76,22 @@ def get_text_features(args, model, classnames=None, template=None):
 
     from ..core.io import save_pickle
 
-    os.makedirs(os.path.dirname(cache), exist_ok=True)
-    save_pickle(cache, {"text_features": text_features})
+    barrier(group)
+    if group is None or group.rank == 0:
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        save_pickle(cache, {"text_features": text_features})
     return text_features
 
 
-def extract_to_caches(model, batches, targets, text_features=None):
+def extract_to_caches(model, batches, targets, text_features=None,
+                      write=True):
     """Encode every ``(images, labels)`` batch, then write one cache per
     ``(T, path)`` of ``targets``: the L2-normalized embeddings for
     ``T=None``, else ``softmax(T * embeddings @ text_features^T)`` (host
     fp32, in place). The embeddings stay on the device until the last batch
     is dispatched and come to the host in one transfer. Returns (normalized
-    embeddings [N, embed_dim], labels [N]) as numpy."""
+    embeddings [N, embed_dim], labels [N]) as numpy; ``write=False`` writes
+    no cache."""
     pending, labels = [], []
     for images, batch_labels in batches:
         pending.append(model.encode_image_batch(images))
@@ -96,18 +109,21 @@ def extract_to_caches(model, batches, targets, text_features=None):
             out -= out.max(axis=-1, keepdims=True)
             np.exp(out, out=out)
             out /= out.sum(axis=-1, keepdims=True)
-        save_feature_cache(path, out, all_labels)
+        if write:
+            save_feature_cache(path, out, all_labels)
     return embeddings, all_labels
 
 
 def ensure_features(args, model, preprocess=None, splits=("test",),
-                    list_T=None):
+                    list_T=None, group=None):
     """Extract and cache features for each split whose cache is missing.
 
     ``list_T`` writes softmax features for several temperatures from one
     pass over the images (reference: src/utils.py:251-264); defaults to
-    [args.T]. ``data_parallel: True`` (several devices) raises until its
-    ROADMAP.md item is ported."""
+    [args.T]. With ``data_parallel: True`` and a task ``group`` every rank
+    calls this, the image batches are encoded batch-data-parallel and rank
+    0 writes the caches (module docstring); without a group (one device)
+    it is the single-device path."""
     from .zero_shot import _parse_flag
 
     root = getattr(args, "root", "data")
@@ -131,16 +147,18 @@ def ensure_features(args, model, preprocess=None, splits=("test",),
         return
 
     _require_model(model, "Feature extraction")
-    if _parse_flag(args.get("data_parallel", False), "data_parallel"):
-        raise unported("data_parallel True (extraction over several "
-                       "devices)", "'multi-device'")
+    if not _parse_flag(args.get("data_parallel", False), "data_parallel"):
+        group = None
+    model.set_task_group(group)
+    # every rank has looked for the caches before rank 0 writes any
+    barrier(group)
     from ..data import build_dataset, iter_image_batches
 
     dataset = build_dataset(args.dataset, args.dataset_path)
     text_features = None
     if args.use_softmax_feature:
         text_features = get_text_features(
-            args, model, dataset.classnames, dataset.template
+            args, model, dataset.classnames, dataset.template, group=group
         )
     split_sources = {
         "train": dataset.train_x,
@@ -156,4 +174,6 @@ def ensure_features(args, model, preprocess=None, splits=("test",),
             split_sources[split], preprocess=preprocess,
             batch_size=getattr(args, "extract_batch_size", 512),
         )
-        extract_to_caches(model, batches, targets, text_features)
+        extract_to_caches(model, batches, targets, text_features,
+                          write=group is None or group.rank == 0)
+    barrier(group)

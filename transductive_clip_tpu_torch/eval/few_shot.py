@@ -11,8 +11,10 @@ reference: eval_few_shot.py:130-187).
 Batch 0 runs blocking; ``defer_fetch`` and ``fused_dispatch`` run the
 later batches through the deferred and fused pipelines as the zero-shot
 evaluator does (eval/zero_shot.py: the same accuracies and predictions, the
-amortised end-to-end time per task). ``data_parallel`` raises
-``NotImplementedError`` until its ROADMAP.md item is ported.
+amortised end-to-end time per task). ``data_parallel`` spreads each batch
+over a task group as the zero-shot evaluator does (every rank draws the
+whole batch and runs its share of the tasks; rank 0 reports); the val-grid
+selection runs on every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import numpy as np
 import torch
 
 from ..core.logger import Logger
-from ..core.metrics import compute_confidence_interval
 from ..core.profiling import PhaseTimer, trace_if_requested
 from ..features.cache import (
     load_feature_cache,
@@ -33,6 +34,7 @@ from ..features.cache import (
 )
 from ..methods import get_few_shot_method
 from ..ops.common import resolve_device
+from ..parallel import shard_task_batch
 from ..tasks import (
     CategoriesSamplerFewShot,
     SamplerQueryFewShot,
@@ -41,9 +43,10 @@ from ..tasks import (
 )
 from .zero_shot import (
     _device_gather,
+    _maybe_task_group,
     _resolve_n_batches,
-    check_supported,
     finalize_deferred,
+    mean_results,
     resolve_defer_fetch,
     resolve_fused_dispatch,
 )
@@ -59,13 +62,19 @@ VAL_PARAM = {
 
 class EvaluatorFewShot:
     """``device``: ``cuda:{args.device}`` when None (raises without a CUDA
-    device), or what the caller passes, e.g. ``"cpu"``."""
+    device), or what the caller passes, e.g. ``"cpu"``. ``group``: the
+    parallel.TaskGroup this process belongs to (its device is the default);
+    only its rank 0 logs and writes results."""
 
-    def __init__(self, device=None, args=None, log_file=None):
+    def __init__(self, device=None, args=None, log_file=None, group=None):
+        if device is None and group is not None:
+            device = group.device
         self.device = resolve_device(device, args)
         self.args = args
-        self.log_file = log_file
-        self.logger = Logger(__name__, log_file) if log_file else None
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.log_file = log_file if self.rank == 0 else None
+        self.logger = Logger(__name__, log_file) if self.log_file else None
         self.val_param = None
 
     def _log(self, msg):
@@ -102,12 +111,13 @@ class EvaluatorFewShot:
             from .extraction import ensure_features
 
             ensure_features(args, model, preprocess,
-                            splits=("train", args.used_test_set))
+                            splits=("train", args.used_test_set),
+                            group=self.group)
         text_features = None
         if not args.use_softmax_feature:
             from .extraction import get_text_features
 
-            text_features = get_text_features(args, model)
+            text_features = get_text_features(args, model, group=self.group)
         support_features, support_labels = load_feature_cache(support_path)
         query_features, query_labels = load_feature_cache(query_path)
         mean_acc, mean_time = self.evaluate_tasks(
@@ -163,19 +173,21 @@ class EvaluatorFewShot:
     # ------------------------------------------------------------------
     def evaluate_tasks(self, support_features, support_labels,
                        query_features, query_labels, text_features=None):
+        """(mean accuracy, mean seconds per task); ``self.task_accuracies``
+        keeps each batch's per-task accuracies [batch_size], in order."""
         args = self.args
-        check_supported(args)
         self._log(
             f"=> Running evaluation with method {args.name_method} "
             f"on {args.dataset} ({args.used_test_set} set, {args.shots}-shot)"
         )
         rng = np.random.default_rng(args.seed if args.seed is not None else None)
+        group = _maybe_task_group(args, self.group, self.logger)
         if args.used_test_set == "test" and args.tunable:
             self.set_method_opt_param()
         method = get_few_shot_method(
             args.name_method, device=self.device, args=args,
             log_file=self.log_file,
-        )
+        ).set_task_group(group)
         timer = PhaseTimer()
         n_class = int(args.n_class)
         flip = bool(args.use_softmax_feature)
@@ -233,11 +245,12 @@ class EvaluatorFewShot:
 
         def make_batch():
             # the reference's draw order: query first, then support. With
-            # device_gather only the indices are drawn here
+            # device_gather only the indices are drawn here. Every rank
+            # draws the whole batch, then keeps its share of the tasks
             if device_gather:
                 idx_q = np.stack(list(SamplerQueryFewShot(sampler)))
                 idx_s = np.stack(list(SamplerSupportFewShot(sampler)))
-                return idx_s, idx_q, None
+                return (*shard_task_batch((idx_s, idx_q), group), None)
             loader_query = [
                 (query_features[idx], query_labels[idx])
                 for idx in SamplerQueryFewShot(sampler)
@@ -246,11 +259,11 @@ class EvaluatorFewShot:
                 (support_features[idx], support_labels[idx])
                 for idx in SamplerSupportFewShot(sampler)
             ]
-            tasks = TasksGeneratorFewShot(
+            tasks = shard_task_batch(TasksGeneratorFewShot(
                 k_eff=args.k_eff, shot=args.shots, n_query=args.n_query,
                 n_class=args.n_class, loader_support=loader_support,
                 loader_query=loader_query, args=args,
-            ).generate_tasks()
+            ).generate_tasks(), group)
             if text_features is not None:
                 tasks["text_features"] = text_features
             return None, None, tasks
@@ -274,7 +287,7 @@ class EvaluatorFewShot:
             deferred.append(res)
             if flush_n and len(deferred) >= flush_n:
                 finalize_deferred(deferred, t_tail0, int(args.batch_size),
-                                  results_task, results_time, timer)
+                                  results_task, results_time, timer, group)
                 deferred, t_tail0 = [], time.perf_counter()
 
         try:
@@ -321,8 +334,7 @@ class EvaluatorFewShot:
                         )
                     with timer.phase("method"):
                         logs = method.run_task(tasks, shot=args.shots)
-                    acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
-                    results_task.append(acc_mean)
+                    results_task.append(logs["acc"][:, -1])
                     results_time.append(logs["timestamps"])
                     if defer:
                         t_tail0 = time.perf_counter()
@@ -332,23 +344,16 @@ class EvaluatorFewShot:
 
         if deferred:
             finalize_deferred(deferred, t_tail0, int(args.batch_size),
-                              results_task, results_time, timer)
+                              results_task, results_time, timer, group)
         self._log("phase timing -- " + timer.summary())
-        # the first batch's time includes warm-up (allocator, kernel build
-        # and load); exclude it from the reported mean when there are later
-        # batches
-        if len(results_time) > 1:
-            results_time = results_time[1:]
-        else:
-            self._log(
-                "note: single-batch run — reported mean time includes "
-                "warm-up"
-            )
-        return float(np.mean(results_task)), float(np.mean(results_time))
+        self.task_accuracies = results_task
+        return mean_results(results_task, results_time, self.logger)
 
     # ------------------------------------------------------------------
     def report_results(self, mean_accuracies, mean_times):
         args = self.args
+        if self.rank != 0:
+            return
         self._log("----- Final results -----")
         word = "_softmax" if args.use_softmax_feature else "_visual"
         path = os.path.join(

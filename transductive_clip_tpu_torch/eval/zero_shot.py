@@ -11,8 +11,16 @@ the feature and label tables held on the device, so that only the
 Accuracies and predictions are the blocking path's, bit for bit; under
 deferral the reported time per task is the amortised end-to-end wall clock
 of the deferred batches (sampling, method, accuracy and fetch), not the
-method's own. ``data_parallel`` raises ``NotImplementedError`` until its
-ROADMAP.md item is ported.
+method's own.
+
+``data_parallel`` spreads every batch over a task group (parallel/; the
+CLI makes it: one process per card): every rank draws the same batch from
+the same seeded sampler and runs its contiguous share of the tasks (the
+rows of the batch, or on the fused route of its index matrix); the method
+reduces its batch-wide decisions over the group, each rank gathers the
+per-task accuracies after its route's own fetch, and rank 0 logs and
+writes the TSV row. The time per task is the slowest rank's over the
+whole batch.
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ from ..features.cache import (
     visual_cache_path,
 )
 from ..methods import get_zero_shot_method
-from ..methods.base import fetch_tree, unported
+from ..methods.base import fetch_tree
 from ..ops.common import resolve_device
+from ..parallel import gather_host, resolve_tp, shard_task_batch
 from ..tasks import (
     CategoriesSamplerZeroShot,
     SamplerQueryZeroShot,
@@ -100,25 +109,70 @@ def resolve_fused_dispatch(args, device_gather):
 
 
 def finalize_deferred(deferred, t_tail0, batch_size, results_task,
-                      results_time, timer=None):
+                      results_time, timer=None, group=None):
     """Fetch every deferred batch's handles in ONE transfer and append their
-    logs in batch order. ``t_tail0`` marks the start of the deferred window
-    (the end of the blocking batch before it), so the amortised per-task
-    time covers exactly the window's batches."""
+    per-task accuracies and times in batch order. ``t_tail0`` marks the
+    start of the deferred window (the end of the blocking batch before
+    it), so the amortised per-task time covers exactly the window's
+    batches. Under a task ``group`` the ranks' accuracies are then gathered
+    in one exchange of host values, and the time is the slowest rank's
+    window over the whole batches (``batch_size`` is the whole batch)."""
     with timer.phase("deferred_fetch") if timer is not None else nullcontext():
         host = fetch_tree([r.handles for r in deferred])
-    per_task = (time.perf_counter() - t_tail0) / (len(deferred) * batch_size)
-    for res, h in zip(deferred, host):
-        logs = res.finalize(h, per_task)
-        acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
-        results_task.append(acc_mean)
-        results_time.append(logs["timestamps"])
+    wall = time.perf_counter() - t_tail0
+    per_task = wall / (len(deferred) * batch_size)
+    logs = [res.finalize(h, per_task) for res, h in zip(deferred, host)]
+    accs = [l["acc"][:, -1] for l in logs]
+    times = [l["timestamps"] for l in logs]
+    if group is not None:
+        parts = gather_host((wall, accs), group)
+        accs = [np.concatenate(a) for a in zip(*(p[1] for p in parts))]
+        per_task = max(p[0] for p in parts) / (len(deferred) * batch_size)
+        times = [per_task] * len(logs)
+    results_task.extend(accs)
+    results_time.extend(times)
 
 
-def check_supported(args):
-    """Raise for the evaluator options whose paths are still to port."""
-    if _parse_flag(args.get("data_parallel", False), "data_parallel"):
-        raise unported("data_parallel True", "'multi-device'")
+def _maybe_task_group(args, group, logger=None):
+    """The task group a batch is spread over (counterpart of the JAX
+    ``_maybe_task_mesh``): ``group`` (the caller's parallel.TaskGroup) when
+    ``data_parallel`` is on. None — the single-device path — when it is
+    off, when there is no group (one device), or when ``batch_size`` does
+    not divide over the ranks: then every rank runs the whole batch and
+    rank 0 reports. ``tp`` > 1 raises (class-TP is not ported)."""
+    if not _parse_flag(args.get("data_parallel", False), "data_parallel"):
+        return None
+    resolve_tp(args.get("tp", 0), logger)
+    if group is None:
+        if logger:
+            logger.info("data_parallel: one device and no task group; "
+                        "running single-device")
+        return None
+    if int(args.batch_size) % group.world != 0:
+        if logger:
+            logger.info(
+                f"data_parallel requested but batch_size={args.batch_size} "
+                f"is not divisible by dp={group.world}; running "
+                "single-device on every rank")
+        return None
+    if logger:
+        logger.info(f"data_parallel: task group dp={group.world} tp=1 on "
+                    f"{group.device}")
+    return group
+
+
+def mean_results(results_task, results_time, logger=None):
+    """(mean accuracy, mean seconds per task) of an evaluation: the mean
+    over batches of each batch's mean per-task accuracy, and of the times
+    of the batches after the first, whose time includes warm-up (the
+    allocator, the kernels' build and load)."""
+    if len(results_time) > 1:
+        results_time = results_time[1:]
+    elif logger:
+        logger.info("note: single-batch run — reported mean time includes "
+                    "warm-up")
+    acc = [compute_confidence_interval(a)[0] for a in results_task]
+    return float(np.mean(acc)), float(np.mean(results_time))
 
 
 def _device_gather(features_dev, idx):
@@ -150,13 +204,19 @@ def _resolve_n_batches(args, logger=None):
 
 class EvaluatorZeroShot:
     """``device``: ``cuda:{args.device}`` when None (raises without a CUDA
-    device), or what the caller passes, e.g. ``"cpu"``."""
+    device), or what the caller passes, e.g. ``"cpu"``. ``group``: the
+    parallel.TaskGroup this process belongs to (its device is the default);
+    only its rank 0 logs and writes results."""
 
-    def __init__(self, device=None, args=None, log_file=None):
+    def __init__(self, device=None, args=None, log_file=None, group=None):
+        if device is None and group is not None:
+            device = group.device
         self.device = resolve_device(device, args)
         self.args = args
-        self.log_file = log_file
-        self.logger = Logger(__name__, log_file) if log_file else None
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.log_file = log_file if self.rank == 0 else None
+        self.logger = Logger(__name__, log_file) if self.log_file else None
 
     def _log(self, msg):
         if self.logger:
@@ -189,12 +249,12 @@ class EvaluatorZeroShot:
             from .extraction import ensure_features
 
             ensure_features(args, model, preprocess,
-                            splits=(args.used_test_set,))
+                            splits=(args.used_test_set,), group=self.group)
         text_features = None
         if not args.use_softmax_feature:
             from .extraction import get_text_features
 
-            text_features = get_text_features(args, model)
+            text_features = get_text_features(args, model, group=self.group)
         features, labels = load_feature_cache(path)
         mean_acc, mean_time = self.evaluate_tasks(
             features, labels, text_features=text_features)
@@ -203,17 +263,19 @@ class EvaluatorZeroShot:
 
     # ------------------------------------------------------------------
     def evaluate_tasks(self, features, labels, text_features=None):
+        """(mean accuracy, mean seconds per task); ``self.task_accuracies``
+        keeps each batch's per-task accuracies [batch_size], in order."""
         args = self.args
-        check_supported(args)
         self._log(
             f"=> Running evaluation with method {args.name_method} "
             f"on {args.dataset} ({args.used_test_set} set)"
         )
+        group = _maybe_task_group(args, self.group, self.logger)
         rng = np.random.default_rng(args.seed if args.seed is not None else None)
         method = get_zero_shot_method(
             args.name_method, device=self.device, args=args,
             log_file=self.log_file,
-        )
+        ).set_task_group(group)
         timer = PhaseTimer()
         # device-resident feature table: rows are gathered on the device
         # per batch (device_gather: False restores the host gather+stack)
@@ -245,7 +307,7 @@ class EvaluatorZeroShot:
         def settle():
             nonlocal deferred
             finalize_deferred(deferred, t_tail0, int(args.batch_size),
-                              results_task, results_time, timer)
+                              results_task, results_time, timer, group)
             deferred = []
 
         def queue(res):
@@ -279,7 +341,11 @@ class EvaluatorZeroShot:
                 with timer.phase("sampling"):
                     idx = None
                     if device_gather:
-                        idx = np.stack(list(SamplerQueryZeroShot(sampler)))
+                        # every rank draws the whole batch, then keeps its
+                        # share of the tasks
+                        idx = shard_task_batch(
+                            np.stack(list(SamplerQueryZeroShot(sampler))),
+                            group)
                 if (defer and use_fused and b > 0 and idx is not None
                         and not guard_batch):
                     with timer.phase("dispatch"):
@@ -306,11 +372,11 @@ class EvaluatorZeroShot:
                             (features[idx], labels[idx])
                             for idx in SamplerQueryZeroShot(sampler)
                         ]
-                        tasks = TasksGeneratorZeroShot(
+                        tasks = shard_task_batch(TasksGeneratorZeroShot(
                             k_eff=args.k_eff, n_query=args.n_query,
                             n_class=args.n_class, loader_query=loader,
                             args=args,
-                        ).generate_tasks()
+                        ).generate_tasks(), group)
                 if text_features is not None:
                     tasks["text_features"] = text_features
                 # batch 0 always runs blocking: it builds and loads the
@@ -329,8 +395,7 @@ class EvaluatorZeroShot:
                 with timer.phase("method"):
                     logs = method.run_task(tasks)
                 batches_since_guard = 0
-                acc_mean, _ = compute_confidence_interval(logs["acc"][:, -1])
-                results_task.append(acc_mean)
+                results_task.append(logs["acc"][:, -1])
                 results_time.append(logs["timestamps"])
                 if defer:
                     t_tail0 = time.perf_counter()   # a new deferred window
@@ -338,21 +403,14 @@ class EvaluatorZeroShot:
         if deferred:
             settle()
         self._log("phase timing -- " + timer.summary())
-        # the first batch's time includes warm-up (allocator, kernel build
-        # and load); exclude it from the reported mean when there are later
-        # batches
-        if len(results_time) > 1:
-            results_time = results_time[1:]
-        else:
-            self._log(
-                "note: single-batch run — reported mean time includes "
-                "warm-up"
-            )
-        return float(np.mean(results_task)), float(np.mean(results_time))
+        self.task_accuracies = results_task
+        return mean_results(results_task, results_time, self.logger)
 
     # ------------------------------------------------------------------
     def report_results(self, mean_accuracies, mean_times):
         args = self.args
+        if self.rank != 0:
+            return
         self._log("----- Final results -----")
         word = "_softmax" if args.use_softmax_feature else "_visual"
         self._log(

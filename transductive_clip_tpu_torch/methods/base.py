@@ -17,6 +17,11 @@ batch gathered on the device from resident feature and label tables. Both
 return a ``DeferredTaskResult`` whose handles the evaluator fetches for
 many batches in one transfer; accuracies and predictions are bit-equal to
 ``run_task``'s.
+
+Under a task group (``set_task_group``, parallel/) ``run_task`` and the
+pipelines take this rank's share of a batch; the methods' batch-wide
+decisions and criterion traces are the whole batch's, and ``run_task``
+returns the whole batch's accuracies and predictions.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..ops.matching import (
     hungarian_matching,
     hungarian_matching_rows,
 )
+from ..parallel.task_parallel import gather_host, group_max, group_sum
 
 # what ``matching_backend: auto`` resolves to on a CUDA device (on the CPU
 # it is 'host', as the JAX package resolves it off the TPU). Chosen by the
@@ -187,7 +193,7 @@ def _proto_rows_device(u, query, T, text_features, use_softmax: bool, R: int,
 
 
 def _accuracy_device(u, query, T, text_features, use_softmax: bool, R: int,
-                     graph_matching: bool, select: str = "topk"):
+                     graph_matching: bool, select: str = "topk", group=None):
     """The zero-shot accuracy reduction on the device: prototypes ->
     cluster->class matching (the batched auction kernel, or the per-row
     argmax without ``graph_matching``) -> rename. Only the [N, n]
@@ -197,7 +203,9 @@ def _accuracy_device(u, query, T, text_features, use_softmax: bool, R: int,
     utils.py:380-417).
 
     Returns (new_preds [N, n], ok 0-d bool tensor or None, preds [N, n],
-    idx [N, R], probs [N, R, C]).
+    idx [N, R], probs [N, R, C]). Under a task ``group`` ``ok`` is the
+    whole batch's, so every rank takes the host solver together, as the
+    single-process batch would.
     """
     preds, idx, probs, present = _proto_rows_device(
         u, query, T, text_features, use_softmax, R, select)
@@ -205,6 +213,8 @@ def _accuracy_device(u, query, T, text_features, use_softmax: bool, R: int,
     if graph_matching:
         cols = cuda_auction.auction_assign(probs * present[..., None])
         ok = (cols >= 0).all()
+        if group is not None:
+            ok = group_max((~ok).to(torch.int32), group) == 0
         cols = torch.clamp_min(cols, 0)
     else:
         cols = torch.argmax(probs, dim=-1)
@@ -228,7 +238,7 @@ def _accuracy_inputs(u, query, cfg, text_features):
 
 
 def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=(),
-                        logger=None):
+                        logger=None, group=None):
     """Zero-shot clustering accuracy with cluster->class matching
     (reference: em_dirichlet.py:61-92).
 
@@ -242,12 +252,13 @@ def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=(),
     counts and reports it to ``logger``). ``extras`` (tensors or host
     values) ride the same host transfer. Returns (acc [N, 1], matched_preds
     [N, n]) and, when ``extras`` is non-empty, their host values as a third
-    element.
+    element. ``group``: the task group whose ranks hold the rest of the
+    batch (the auction's fallback is decided for the whole batch).
     """
     y_q = np.asarray(y_q)
     if not bool(cfg.get("proto_device", True)):
         out = _clustering_accuracy_host(u, query, y_q, cfg, text_features,
-                                        logger)
+                                        logger, group)
         return out + (_fetch(*extras),) if extras else out
 
     graph_matching = bool(cfg.graph_matching)
@@ -264,7 +275,7 @@ def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=(),
     else:
         new_preds_d, ok, preds_d, idx_d, probs_d = _accuracy_device(
             u, query, float(cfg.T), tf, use_softmax, R, graph_matching,
-            _proto_select(cfg))
+            _proto_select(cfg), group)
         new_preds, ok_h, *extras_h = _fetch(new_preds_d, ok, *extras)
         if ok_h is not None and not bool(ok_h):
             # the auction hit its round budget with unassigned rows
@@ -278,7 +289,7 @@ def clustering_accuracy(u, query, y_q, cfg, text_features=None, extras=(),
 
 
 def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None,
-                              logger=None):
+                              logger=None, group=None):
     """All-host accuracy path, shaped exactly like the reference
     (full-width float64 prototypes; reference: em_dirichlet.py:61-92)."""
     device = u.device
@@ -302,7 +313,7 @@ def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None,
     if bool(cfg.graph_matching):
         if _matching_backend(cfg, device) == "device":
             new_preds = device_matching(preds, one_hot, probs, device,
-                                        logger)
+                                        logger, group)
         else:
             new_preds = hungarian_matching(preds, probs)
     else:
@@ -310,12 +321,13 @@ def _clustering_accuracy_host(u, query, y_q, cfg, text_features=None,
     return _host_accuracy(new_preds, y_q), new_preds
 
 
-def device_matching(preds, one_hot, probs, device, logger=None):
+def device_matching(preds, one_hot, probs, device, logger=None, group=None):
     """Cluster->class matching of the all-host path through the batched
     auction on ``device``: rows = the top-n_query clusters by population
     (absent clusters get constant-zero value rows, which cannot displace
     real rows from their optimum); the exact host solver when the auction's
-    budget ran out (``note_host_fallback``)."""
+    budget ran out in any task of the ``group``'s batch
+    (``note_host_fallback``)."""
     n_task, n_query, n_class = one_hot.shape
     counts = one_hot.sum(axis=1)                              # [N, K]
     r = min(n_class, n_query)
@@ -323,9 +335,11 @@ def device_matching(preds, one_hot, probs, device, logger=None):
     vals = np.take_along_axis(probs, idx[..., None], axis=1)  # [N, R, C]
     present = np.take_along_axis(counts, idx, axis=1) > 0
     vals = vals * present[..., None]
-    cols = to_host(cuda_auction.auction_assign(
-        torch.as_tensor(vals, dtype=torch.float32, device=device)))
-    if (cols < 0).any():
+    cols = cuda_auction.auction_assign(
+        torch.as_tensor(vals, dtype=torch.float32, device=device))
+    cols, bad = to_host(cols, group_max((cols < 0).any().to(torch.int32),
+                                        group))
+    if bad:
         note_host_fallback(n_task, logger)
         return hungarian_matching(preds, probs)
     lut = np.zeros((n_task, n_class), preds.dtype)
@@ -402,7 +416,9 @@ class DeferredTaskResult:
     transfer (``fetch_tree``), so no host sync waits on batch b while batch
     b + 1 is sampled. ``finalize(host_values, elapsed_per_task)`` then
     builds the logs dict ``run_task`` returns; accuracy and predictions are
-    bit-equal to the blocking path."""
+    bit-equal to the blocking path. Under a task group they are this rank's
+    tasks': the evaluator gathers a window's over the group after its fetch
+    (``eval.zero_shot.finalize_deferred``)."""
 
     def __init__(self, handles, finalize):
         self.handles = handles
@@ -487,6 +503,11 @@ class TransductiveMethod:
 
     #: "clustering" -> matched clustering accuracy; "direct" -> argmax accuracy
     acc_mode = "clustering"
+    #: True where ``_infer`` hands ``self.group`` to its loop, which then
+    #: reduces its own decisions and criterion trace over the group; else
+    #: the trace is a mean over the rank's tasks, which ``_infer_group``
+    #: makes the whole batch's
+    reduces_over_group = False
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         self.model = model
@@ -504,6 +525,19 @@ class TransductiveMethod:
         #: True only while a blocking run_task executes _infer: exactness
         #: guards (a duplicate solve + host comparison) may only fire there
         self._guard_allowed = False
+        #: the task group a batch is spread over (``set_task_group``)
+        self.group = None
+
+    def set_task_group(self, group):
+        """Spread every batch over ``group`` (a parallel.TaskGroup; None:
+        one device), the counterpart of the JAX ``set_mesh``: ``run_task``
+        and the pipelines then take this rank's contiguous share of the
+        tasks (``parallel.shard_task_batch``), the method's batch-wide
+        decisions and criterion trace are the whole batch's, and
+        ``run_task`` returns the whole batch's accuracies and predictions
+        and the slowest rank's time."""
+        self.group = group
+        return self
 
     def _timing_iter_widths(self, n_used, n_full, n_task):
         """Per-iteration relative costs for ``timing_logs``, or None for
@@ -538,10 +572,26 @@ class TransductiveMethod:
         """Run the method. Returns (u, criterions[, n_exec])."""
         raise NotImplementedError
 
+    def _infer_group(self, task):
+        """``_infer``, with the criterion trace made the whole batch's under
+        a task group where the method's loop does not do it itself: every
+        rank holds as many tasks, so the batch mean is the mean of the
+        ranks' means."""
+        out = self._infer(task)
+        if self.group is None or self.reduces_over_group:
+            return out
+        u, criterions, n_exec = split_infer_out(out)
+        criterions = group_sum(criterions, self.group) / self.group.world
+        return u, criterions, n_exec
+
     def _infer_chunked(self, task):
         """Run ``_infer``, splitting the (independent) task axis into
         ``task_chunk``-sized slices when configured; criterion traces and
-        executed counts are averaged across chunks."""
+        executed counts are averaged across chunks. Under a task group each
+        rank chunks its own share, and the ranks' i-th chunks run together
+        as one batch: exact for the fixed-schedule methods; for the
+        early-stopping ones, the tasks that share a stop test are those
+        chunks'."""
         chunk = int(self.args.get("task_chunk", 0) or 0)
         n_task = task["x_q"].shape[0]
         if chunk <= 0 or n_task <= chunk or n_task % chunk != 0:
@@ -550,7 +600,7 @@ class TransductiveMethod:
                     f"task_chunk={chunk} does not divide n_task={n_task}; "
                     "running unchunked"
                 )
-            return self._infer(task)
+            return self._infer_group(task)
         sliced_keys = [
             k for k, v in task.items()
             if hasattr(v, "ndim") and v.ndim >= 1 and v.shape[0] == n_task
@@ -561,7 +611,7 @@ class TransductiveMethod:
             sub = dict(task)
             for k in sliced_keys:
                 sub[k] = task[k][s:s + chunk]
-            u, crit, n_exec = split_infer_out(self._infer(sub))
+            u, crit, n_exec = split_infer_out(self._infer_group(sub))
             if self._pending_check is not None:
                 # chunks would overwrite each other's deferred check
                 pend = self._pending_check
@@ -627,7 +677,6 @@ class TransductiveMethod:
             self._guard_allowed = False
         u = device_sync(u)
         elapsed = time.perf_counter() - t0 - self._untimed_overhead_s
-        n_task = query.shape[0]
 
         # everything small rides ONE host transfer with the accuracy
         # outputs: the criterion trace, the executed-iteration count, and
@@ -639,7 +688,7 @@ class TransductiveMethod:
         if self.acc_mode == "clustering":
             acc, preds, extras = clustering_accuracy(
                 u, query, y_q, self.args, text_features=text_features,
-                extras=extras, logger=self.logger,
+                extras=extras, logger=self.logger, group=self.group,
             )
         else:
             acc, preds, extras = direct_accuracy(u, y_q, extras=extras)
@@ -647,12 +696,25 @@ class TransductiveMethod:
         if pend is not None:
             pend.finish(extras[2])
         criterions = np.asarray(criterions)
+        acc, preds, elapsed = self._whole_batch(acc, preds, elapsed)
+        n_task = acc.shape[0]
         return {
             "acc": acc,
             "preds": preds,
             "criterions": criterions,
             **self._timing_logs_for(elapsed, n_task, n_exec, criterions),
         }
+
+    def _whole_batch(self, acc, preds, elapsed):
+        """Under a task group: every rank's per-task accuracies and
+        predictions in task order, and the slowest rank's time (one gather
+        of host values); else the arguments."""
+        if self.group is None:
+            return acc, preds, elapsed
+        parts = gather_host((acc, preds, elapsed), self.group)
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                max(p[2] for p in parts))
 
     # -- the evaluator pipelines -------------------------------------------
     def _declines_pipelines(self) -> bool:
@@ -676,7 +738,7 @@ class TransductiveMethod:
         fires (``_guard_allowed`` stays False); returns (u, criterions,
         n_exec, the pending compaction check)."""
         self._pending_check = None
-        u, criterions, n_exec = split_infer_out(self._infer(task))
+        u, criterions, n_exec = split_infer_out(self._infer_group(task))
         pend, self._pending_check = self._pending_check, None
         return u, criterions, n_exec, pend
 
@@ -700,7 +762,7 @@ class TransductiveMethod:
                 u, query, cfg, text_features)
             new_preds, ok, preds, idx, probs = _accuracy_device(
                 u, query, float(cfg.T), tf, use_softmax, R, graph_matching,
-                _proto_select(cfg))
+                _proto_select(cfg), self.group)
             if graph_matching:
                 held = (preds, idx, probs)
         else:

@@ -33,6 +33,11 @@ warning). The solver is resolved once at the compact width
 (``resolve_solver_for_width``), so ``pallas`` runs K1 there and, like the JAX
 package, the Newton-Minka solve at full width; ``mm_pallas`` runs K2 at
 every width.
+
+Under a task group (``group``, parallel/) the stop test's max, the
+populated count, the solvers' criteria and the criterion trace are the
+whole batch's, gathered over its ranks before they are read, as in the
+zero-shot method.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from ...ops.common import EPS, get_one_hot, select_rows_covering, to_host
+from ...parallel.task_parallel import batch_rows, task_share
 from ...ops.dirichlet import (
     dirichlet_logits_cache,
     resolve_solver_for_width,
@@ -65,17 +71,22 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
                           iter_mm: int, n_class: int, hard: bool,
                           solver: str = "mm", early_stop: bool = True,
                           early_stop_tol: float = 1e-6, compact: bool = True,
-                          return_n_iter: bool = False, select: str = "topk"):
+                          return_n_iter: bool = False, select: str = "topk",
+                          group=None):
     """support/query: [N, s, K] / [N, n, K] softmax features; y_s: [N, s]
     int64 — tensors on the device to run on.
 
     Returns (u [N, n, K], criterions [n_iter]); with ``return_n_iter`` also
     the executed iteration count and the max populated-cluster count any
     compact iteration consumed (host ints). ``early_stop_tol`` is compared
-    in fp32, as the JAX package compares it.
+    in fp32, as the JAX package compares it. ``group``: the tasks are this
+    rank's equal share of the group's batch, whose decisions and criterion
+    trace these are.
     """
     n_task, n_query, _ = query.shape
     device = query.device
+    share = task_share(group, n_task, device)
+    n_all = n_task if share is None else share.size
     tol = np.float32(early_stop_tol)
     log_s = torch.log(support + EPS)
     log_q = torch.log(query + EPS)
@@ -104,7 +115,8 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
     def step_full(u, alpha_old):
         query_stat = torch.einsum("tnk,tnd->tkd", u, log_q)
         y_cst = (supp_stat + query_stat) / (y_s_sum + u.sum(1))[..., None]
-        alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver)
+        alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver,
+                             share=share)
         l12, l3 = dirichlet_logits_cache(log_q, alpha)
         return finish_step(u, l12, l3), alpha, l12, l3
 
@@ -129,7 +141,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
 
         def solve(a_old, y, m):
             return update_alpha(a_old, y, iter_mm=iter_mm, solver=solver_c,
-                                row_mask=m)
+                                row_mask=m, share=share)
 
         if n_fast < n_compact and pop <= n_fast:
             a = solve(alpha_c_old[:, :n_fast], y_c[:, :n_fast],
@@ -179,18 +191,23 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         return diff / torch.sqrt((alpha_old ** 2).sum((1, 2)))
 
     def observe(rel, u):
-        """The one host transfer of an EM iteration: the batch-max relative
-        change and the batch-max populated count of the new u."""
-        crit_max, pop = to_host(rel.max(), (u.sum(1) > 0).sum(-1).max())
-        return crit_max, int(pop)
+        """The iteration's criterion (the batch's mean relative change) and
+        its one host transfer: the batch-max relative change and the
+        batch-max populated count of the new u. Under a group both are
+        first gathered, in one collective (the counts ride as fp32, exact
+        below 2^24)."""
+        both = batch_rows(torch.stack(
+            (rel, (u.sum(1) > 0).sum(-1).to(rel.dtype)), 1), share)
+        crit_max, pop = to_host(both[:, 0].max(), both[:, 1].max())
+        return both[:, 0].sum() / n_all, crit_max, int(pop)
 
     # iteration 1 always solves all K rows (the dense initial u = query
     # gives every row query mass)
     u, alpha, l12, l3 = step_full(query, alpha0)
     rel = crit_fn(alpha0, alpha)
-    crits = rel.mean().repeat(n_iter)
+    crit, crit_max, pop = observe(rel, u)
+    crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
-    crit_max, pop = observe(rel, u)
     pop_max = 0
     it = 1
     prev_idx = None
@@ -200,7 +217,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         # every zero-query-mass row; warm-started from iteration 1's alpha
         y_pure = supp_stat / torch.clamp_min(y_s_sum, EPS)[..., None]
         alpha_base = update_alpha(alpha, y_pure, iter_mm=iter_mm,
-                                  solver=solver)
+                                  solver=solver, share=share)
         if not early_stop or crit_max >= tol:
             # iteration 2, the transition step: every zero-mass row moves to
             # alpha_base — full-width bookkeeping, paid once
@@ -212,11 +229,11 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
             l12, l3 = dirichlet_logits_cache(log_q, alpha)
             u = finish_step(u, l12, l3)
             ss = (alpha ** 2).sum((1, 2))
-            crits = torch.where(steps >= 1, rel.mean(), crits)
             prev_idx = idx
             pop_max = pop
             it = 2
-            crit_max, pop = observe(rel, u)
+            crit, crit_max, pop = observe(rel, u)
+            crits = torch.where(steps >= 1, crit, crits)
 
     while it < n_iter and (not early_stop or crit_max >= tol):
         if use_compact:
@@ -229,9 +246,9 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
             alpha_old = alpha
             u, alpha, l12, l3 = step_full(u, alpha_old)
             rel = crit_fn(alpha_old, alpha)
-        crits = torch.where(steps >= it, rel.mean(), crits)
+        crit, crit_max, pop = observe(rel, u)
+        crits = torch.where(steps >= it, crit, crits)
         it += 1
-        crit_max, pop = observe(rel, u)
     if return_n_iter:
         return u, crits, it, pop_max
     return u, crits
@@ -239,6 +256,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
 
 class EM_DIRICHLET(FewShotMethod):
     hard = False
+    reduces_over_group = True
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         super().__init__(model, device, log_file, args)
@@ -285,6 +303,7 @@ class EM_DIRICHLET(FewShotMethod):
             compact=self.compact,
             return_n_iter=True,
             select=self.select,
+            group=self.group,
         )
         self._check_compaction(pop_max, task["x_q"].shape[1],
                                task["x_q"].shape[2])

@@ -134,6 +134,9 @@ class LAPLACIAN_SHOT(FewShotMethod):
         elapsed = time.perf_counter() - t0
         acc_trace, preds = _fetch(
             acc_trace, torch.cat([torch.argmax(Y, dim=-1) for _, Y in parts]))
+        acc_trace, preds, elapsed = self._whole_batch(acc_trace, preds,
+                                                      elapsed)
+        n_task = acc_trace.shape[0]
         return {
             "acc": acc_trace,                                     # [N, iter]
             "preds": preds,

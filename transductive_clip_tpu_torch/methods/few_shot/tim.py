@@ -28,7 +28,10 @@ TPU. ``auto`` resolves to 'highest' and ``tim_grad_impl: auto`` to
 
 The opt-in ``tim_early_stop`` replaces the JAX ``while_loop``s by Python
 loops: every step reads the per-task stable count through
-``ops.common.to_host``, one counted host sync a step.
+``ops.common.to_host``, one counted host sync a step. Under a task group
+(``group``, parallel/) that count is gathered over the ranks first, so the
+freeze and the stragglers are the whole batch's; the loss is a sum over
+tasks, so the steps themselves need no communication.
 
 No learned parameters cross from the JAX package: the initial weights are
 the support class means of the same support in both packages.
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from ...ops.common import TIM_EPS as _EPS, get_one_hot, to_host, top_rows
+from ...parallel.task_parallel import gather_positions, gather_tasks
 from ..base import FewShotMethod, narrow_phase_widths
 from .paddle import support_class_means
 
@@ -268,7 +272,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
               precision: str = "highest", ce_impl: str = "gather",
               grad_impl: str = "autodiff", opt_dtype: str = "float32",
               early_stop: bool = False, es_patience: int = 100,
-              compact_tasks: int = 8):
+              compact_tasks: int = 8, group=None):
     """support [N, s, d], query [N, n, d] fp32, y_s [N, s] int64, on the
     device to run on; temp, alpha_value, lr host numbers, loss_weights three
     host numbers.
@@ -283,9 +287,21 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     remain active they are gathered into a narrow straggler buffer and only
     they keep stepping. Frozen tasks report the logits they had at freeze
     time (see the JAX function's docstring for the argument).
+
+    ``group`` (a parallel.TaskGroup): the tasks are this rank's contiguous
+    equal share of the group's batch. The stop decisions and the
+    stragglers are the whole batch's, and the criterions come back for the
+    whole batch, [n_iter, N x world]; u stays this rank's.
     """
     loss_weights = [float(v) for v in loss_weights]
     n_task = query.shape[0]
+    lo = 0 if group is None else group.rank * n_task
+    n_all = n_task if group is None else n_task * group.world
+
+    def whole_batch(criterions):
+        if group is None:
+            return criterions
+        return gather_tasks(criterions.t().contiguous(), group).t()
     # loop-invariant sample norms, hoisted out of the Adam loop
     x2_s = 0.5 * (support * support).sum(-1)
     x2_q = 0.5 * (query * query).sum(-1)
@@ -295,6 +311,14 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     def make_step(support_b, query_b, y_s_b, x2_s_b, x2_q_b):
         """One Adam step over the given task buffers (the full batch, or
         phase 2's gathered stragglers)."""
+        if support_b.shape[0] == 0:
+            # a rank that holds none of the stragglers steps nothing, and
+            # still joins every gather (parallel/task_parallel.py)
+            def step_none(weights, state):
+                empty = query_b.new_zeros((0, query_b.shape[1], n_class))
+                return weights, state, empty, query_b.new_zeros(0)
+
+            return step_none
         grad_fn = _make_grad_fn(
             grad_impl, support_b, query_b, y_s_b, x2_s_b, x2_q_b, temp,
             alpha_value, loss_weights, entropies, n_class, precision, ce_impl,
@@ -322,20 +346,22 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             crits.append(crit)
         criterions = (torch.stack(crits) if crits else
                       torch.zeros((0, n_task), device=query.device))
-        return torch.softmax(logits_q, dim=2), criterions
+        return torch.softmax(logits_q, dim=2), whole_batch(criterions)
 
     n_narrow = int(compact_tasks)
-    use_tc = 0 < n_narrow < n_task
+    use_tc = 0 < n_narrow < n_all
     patience = int(es_patience)
     steps = torch.arange(n_iter, device=query.device)[:, None]
     criterions = torch.zeros((n_iter, n_task), device=query.device)
     it = 0
 
-    def run_phase(step, carry, busy, t_idx=None):
+    def run_phase(step, carry, busy, pos, size, t_idx=None):
         """Adam steps over whichever buffer ``step`` was built for, while
-        ``busy(stable_h)``. ``t_idx``: phase 2's straggler indices — their
-        criterion scatters back into the full-batch trace (frozen tasks
-        change by exactly 0)."""
+        ``busy(stable_h)``. ``pos``, ``size``: where this rank's tasks sit
+        in the phase's batch of ``size`` tasks, whose stable counts the host
+        reads. ``t_idx``: phase 2's straggler indices — their criterion
+        scatters back into the full-batch trace (frozen tasks change by
+        exactly 0)."""
         nonlocal it, criterions
         weights, state, logits_q, preds_prev, stable, stable_h = carry
         while it < n_iter and busy(stable_h):
@@ -351,7 +377,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             criterions = torch.where(steps >= it, crit[None, :], criterions)
             it += 1
             preds_prev = preds
-            stable_h = to_host(stable)
+            stable_h = to_host(gather_positions(stable, pos, size, group))
         return weights, state, logits_q, preds_prev, stable, stable_h
 
     def busy_phase1(stable_h):
@@ -362,18 +388,22 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     carry = run_phase(
         step_full,
         (w0, state0, logits_q, torch.argmax(logits_q, dim=-1), stable0,
-         np.zeros(n_task, np.int64)),
-        busy_phase1)
+         np.zeros(n_all, np.int64)),
+        busy_phase1, torch.arange(lo, lo + n_task, device=query.device),
+        n_all)
     weights, state, logits_q, preds, stable, stable_h = carry
     it_full = it
 
     if use_tc:
-        # the least-stable tasks (covering every task with stable <
-        # patience by the phase-1 exit condition), lower index first on
-        # ties as jax.lax.top_k orders them; already-frozen fillers keep
-        # stepping harmlessly
+        # the least-stable tasks of the batch (covering every task with
+        # stable < patience by the phase-1 exit condition), lower index
+        # first on ties as jax.lax.top_k orders them; already-frozen
+        # fillers keep stepping harmlessly. This rank continues those it
+        # holds (maybe none) at their places in that order
         _, t_host = top_rows(torch.as_tensor(patience - stable_h), n_narrow)
-        t_idx = t_host.to(query.device)
+        t_host = t_host.numpy()
+        mine = np.flatnonzero((t_host >= lo) & (t_host < lo + n_task))
+        t_idx = torch.as_tensor(t_host[mine] - lo, device=query.device)
 
         def grab(a):
             return a.index_select(0, t_idx)
@@ -385,11 +415,13 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
         narrow = run_phase(
             step_narrow,
             (grab(weights), state_n, grab(logits_q), grab(preds),
-             grab(stable), stable_h[t_host.numpy()]),
-            lambda s: bool((s < patience).any()), t_idx=t_idx)
+             grab(stable), stable_h[t_host]),
+            lambda s: bool((s < patience).any()),
+            torch.as_tensor(mine, device=query.device), len(t_host),
+            t_idx=t_idx)
         logits_q = logits_q.index_copy(0, t_idx, narrow[2])
 
-    return (torch.softmax(logits_q, dim=2), criterions,
+    return (torch.softmax(logits_q, dim=2), whole_batch(criterions),
             np.array([it, it_full]))
 
 
@@ -441,6 +473,8 @@ def resolve_grad_impl(cfg_value, y_s, n_class, precision="highest"):
 class _TIMBase(FewShotMethod):
     """Shared tim_infer plumbing for TIM-GD and alpha-TIM."""
 
+    reduces_over_group = True
+
     def _tim_kwargs(self, task):
         args = self.args
         precision = resolve_matmul_precision(
@@ -464,6 +498,7 @@ class _TIMBase(FewShotMethod):
             early_stop=bool(args.get("tim_early_stop", False)),
             es_patience=es_patience,
             compact_tasks=int(args.get("tim_compact_tasks", 8)),
+            group=self.group,
         )
 
     def _timing_iter_widths(self, n_used, n_full, n_task):

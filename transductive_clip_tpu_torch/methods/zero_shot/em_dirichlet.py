@@ -29,6 +29,14 @@ test) together with the next iteration's per-task populated-cluster counts
 (the fast-tier gate, the 'rank' selection guard and the sparsity warning).
 The solvers add their own: none for the two kernels, one per Newton step for
 'minka', one per 50 updates for 'mm'.
+
+Under a task group (``group``, parallel/) each rank runs its share of the
+batch, and every decision above reads the whole batch's values: the
+per-task changes and populated counts are gathered over the group in task
+order before the iteration's host read, the solvers' criteria are summed
+over it, and task compaction picks the batch's stragglers, each rank
+continuing those it holds. So each rank's u is its rows of the
+single-process result.
 """
 
 from __future__ import annotations
@@ -54,6 +62,12 @@ from ...ops.dirichlet import (
     update_alpha,
     update_logits_cache_rows,
     weighted_log_means,
+)
+from ...parallel.task_parallel import (
+    TaskShare,
+    batch_rows,
+    group_max,
+    task_share,
 )
 from ..base import (
     PendingCompactionCheck,
@@ -94,10 +108,12 @@ def _finish(u, logits_12, logits_3, lambd, n_query, n_class, hard):
 
 
 def _em_step_full(u, alpha_old, log_query, lambd, n_query, n_class,
-                  iter_mm, solver, hard):
-    """One full-width EM iteration (all K cluster rows solved)."""
+                  iter_mm, solver, hard, share=None):
+    """One full-width EM iteration (all K cluster rows solved); ``share``:
+    these tasks' place in a batch spread over a task group."""
     y_cst, nonzero = weighted_log_means(u, log_query, eps=EPS)
-    alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver)
+    alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver,
+                         share=share)
     # keep previous alpha rows for empty clusters (reference: :224-226)
     alpha = torch.where(nonzero, alpha, alpha_old)
     l12, l3 = dirichlet_logits_cache(log_query, alpha)
@@ -107,7 +123,7 @@ def _em_step_full(u, alpha_old, log_query, lambd, n_query, n_class,
 
 def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
                      n_class, iter_mm, solver, hard, n_compact, pop_max,
-                     n_fast=None, select="topk"):
+                     n_fast=None, select="topk", share=None):
     """EM iteration solving alpha only for the top-``n_compact`` clusters.
 
     ``alpha`` [N, K, K] is updated IN PLACE at the solved rows. ``pop_max``
@@ -115,7 +131,8 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
     it gates the two-tier solve (only when every task's populated rows fit
     in ``n_fast`` are just the first ``n_fast`` rows solved) and the 'rank'
     selection's guard. The logits caches l12 [N, K] and l3 [N, n, K] are
-    updated at the changed rows only.
+    updated at the changed rows only. ``share``: these tasks' place in a
+    batch spread over a task group (the solver's criterion is the batch's).
     """
     n = u.shape[1]
     u_sum = u.sum(1)                                              # [N, K]
@@ -135,7 +152,7 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
         # its convergence criterion, so the executed inner iteration count
         # depends only on the populated rows
         return update_alpha(a_old, y, iter_mm=iter_mm, solver=solver,
-                            row_mask=m)
+                            row_mask=m, share=share)
 
     if n_fast is not None and n_fast < n_compact and pop_max <= n_fast:
         a = solve(alpha_c_old[:, :n_fast], y_c[:, :n_fast],
@@ -181,7 +198,7 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
                        early_stop: bool = True,
                        early_stop_tol: float = 1e-6,
                        select: str = "topk", compact_tasks: int = 8,
-                       return_iter_split: bool = False):
+                       return_iter_split: bool = False, group=None):
     """Run EM-Dirichlet on a batch of tasks.
 
     query: [N, n, K] softmax features (a tensor on the device to run on).
@@ -192,9 +209,17 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
     any compact iteration consumed.
 
     ``early_stop_tol`` is compared in fp32, as the JAX package compares it.
+
+    ``group`` (a parallel.TaskGroup): ``query`` is this rank's contiguous
+    share of a batch of ``group.world`` equal shares. Every decision reads
+    the whole batch's values (module docstring), so u is this rank's rows
+    of the single-process result; the criterion trace, the iteration split
+    and the populated count are the whole batch's, equal on every rank.
     """
     n_task, n_query, n_class = query.shape
     device = query.device
+    lo = 0 if group is None else group.rank * n_task
+    n_all = n_task if group is None else n_task * group.world
     tol = np.float32(early_stop_tol)
     log_query = torch.log(query + EPS)
     u = query
@@ -205,25 +230,31 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
     use_compact = compact and engaged
     n_fast = min(_COMPACT_FAST, n_compact)
 
-    def compact_step(u, alpha, l12, l3, lq, pop, step_select):
+    def compact_step(u, alpha, l12, l3, lq, pop, step_select, share):
         return _em_step_compact(
             u, alpha, l12, l3, lq, lambd, n_query, n_class, iter_mm, solver,
             hard, n_compact, pop, n_fast=n_fast, select=step_select,
+            share=share,
         )
 
-    def observe(rel, u):
-        """The one host transfer of an EM iteration: per-task relative
-        change (stop test, task compaction) and the next iteration's
-        per-task populated counts (fast-tier gate), as needed."""
-        want_rel, want_pop = early_stop, use_compact
-        if want_rel and want_pop:
-            return to_host(rel, _populated(u))
-        if want_rel:
-            return to_host(rel), None
-        if want_pop:
-            return None, to_host(_populated(u))
-        return None, None
+    def observe(rel, u, share):
+        """The iteration's criterion (the mean relative change, over the
+        whole batch: frozen tasks change by exactly 0) and its one host
+        transfer: the per-task relative change (stop test, task
+        compaction) and the next iteration's per-task populated counts
+        (fast-tier gate), as needed. Under a group both are first gathered,
+        in one collective, into the batch of the phase (``share``)."""
+        parts = [rel] + ([_populated(u).to(rel.dtype)] if use_compact else [])
+        both = batch_rows(torch.stack(parts, 1), share)
+        crit = both[:, 0].sum() / n_all
+        want = ([both[:, 0]] if early_stop else []) + (
+            [both[:, 1]] if use_compact else [])
+        got = to_host(*want) if want else ()
+        got = got if len(want) > 1 else (got,)
+        return (crit, got[0] if early_stop else None,
+                got[-1] if use_compact else None)
 
+    share1 = task_share(group, n_task, device)
     ss = torch.full((n_task,), float(n_class) * n_class, dtype=torch.float32,
                     device=device)
     pop_max = 0
@@ -236,9 +267,9 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
                          dtype=torch.float32, device=device)
         l3 = torch.zeros((n_task, n_query, n_class), dtype=torch.float32,
                          device=device)
-        pop1 = int(to_host(_populated(u)).max())
+        pop1 = int(to_host(group_max(_populated(u).max(), group)))
         u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-            u, alpha, l12, l3, log_query, pop1, "topk")
+            u, alpha, l12, l3, log_query, pop1, "topk", share1)
         # ||ones||^2 = K*K exactly
         rel = _rel_from_ss(diff_ss, ss)
         ss = ss + delta_ss
@@ -246,33 +277,32 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         alpha_old = alpha
         u, alpha, l12, l3 = _em_step_full(
             u, alpha, log_query, lambd, n_query, n_class, iter_mm, solver,
-            hard,
+            hard, share1,
         )
         rel = _rel_per_task(alpha_old, alpha)
         if use_compact:
             # carried ||alpha||^2 for the compact criterion
             ss = (alpha ** 2).sum((1, 2))
-    crits = rel.mean().repeat(n_iter)
+    crit, rel_h, pops_h = observe(rel, u, share1)
+    crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
-    rel_h, pops_h = observe(rel, u)
 
     # task compaction engages only with early stopping and when the narrow
     # buffer is narrower than the batch; compact_tasks=0 disables
     n_narrow = int(compact_tasks)
-    use_tc = early_stop and 0 < n_narrow < n_task
+    use_tc = early_stop and 0 < n_narrow < n_all
     it = 1
 
-    def run_phase(state, rel_h, pops_h, lq, busy):
-        """EM iterations over whatever task batch ``lq`` belongs to, while
-        ``busy(rel_h)``; the criterion trace divides by the FULL task count
-        (frozen tasks change by exactly 0)."""
+    def run_phase(state, rel_h, pops_h, lq, busy, share):
+        """EM iterations over whatever task batch ``lq`` belongs to (this
+        rank's part of it: ``share``), while ``busy(rel_h)``."""
         nonlocal it, crits, pop_max
         u, alpha, l12, l3, ss = state
         while it < n_iter and busy(rel_h):
             if use_compact:
                 pop = int(pops_h.max())
                 u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-                    u, alpha, l12, l3, lq, pop, select)
+                    u, alpha, l12, l3, lq, pop, select, share)
                 rel = _rel_from_ss(diff_ss, ss)
                 ss = ss + delta_ss
                 pop_max = max(pop_max, pop)
@@ -280,13 +310,12 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
                 alpha_old = alpha
                 u, alpha, l12, l3 = _em_step_full(
                     u, alpha_old, lq, lambd, n_query, n_class, iter_mm,
-                    solver, hard,
+                    solver, hard, share,
                 )
                 rel = _rel_per_task(alpha_old, alpha)
-            crit = rel.sum() / n_task
+            crit, rel_h, pops_h = observe(rel, u, share)
             crits = torch.where(steps >= it, crit, crits)
             it += 1
-            rel_h, pops_h = observe(rel, u)
         return (u, alpha, l12, l3, ss), rel_h, pops_h
 
     def busy_phase1(rel_h):
@@ -299,23 +328,27 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         return bool(rel_h.max() >= tol)
 
     state, rel_h, pops_h = run_phase((u, alpha, l12, l3, ss), rel_h, pops_h,
-                                     log_query, busy_phase1)
+                                     log_query, busy_phase1, share1)
     u = state[0]
     # iterations executed at the full batch width (phase 1); the rest ran
     # at the narrow straggler width
     it_full = it
 
     if use_tc:
-        # the n_narrow most-unconverged tasks (covering every task with
-        # rel >= tol by the phase-1 exit condition), lower index first on
-        # ties as jax.lax.top_k orders them
+        # the n_narrow most-unconverged tasks of the batch (covering every
+        # task with rel >= tol by the phase-1 exit condition), lower index
+        # first on ties as jax.lax.top_k orders them; this rank continues
+        # those it holds (maybe none) at their places in that order
         t_host = np.argsort(-rel_h, kind="stable")[:n_narrow]
-        t_idx = torch.as_tensor(t_host, device=device)
+        mine = np.flatnonzero((t_host >= lo) & (t_host < lo + n_task))
+        t_idx = torch.as_tensor(t_host[mine] - lo, device=device)
+        share2 = None if group is None else TaskShare(
+            group, torch.as_tensor(mine, device=device), len(t_host))
         narrow = tuple(a.index_select(0, t_idx) for a in state)
         narrow, _, _ = run_phase(
             narrow, rel_h[t_host], None if pops_h is None else pops_h[t_host],
             log_query.index_select(0, t_idx),
-            lambda r: bool(r.max() >= tol))
+            lambda r: bool(r.max() >= tol), share2)
         u = u.index_copy(0, t_idx, narrow[0])
     if return_iter_split:
         return u, crits, np.array([it, it_full]), pop_max
@@ -325,6 +358,7 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
 class EM_DIRICHLET(TransductiveMethod):
     acc_mode = "clustering"
     hard = False
+    reduces_over_group = True
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         super().__init__(model, device, log_file, args)
@@ -418,6 +452,7 @@ class EM_DIRICHLET(TransductiveMethod):
             return_iter_split=True,
             select=self.select,
             compact_tasks=self.compact_tasks,
+            group=self.group,
         )
 
     def _infer(self, task):
@@ -454,8 +489,12 @@ class EM_DIRICHLET(TransductiveMethod):
             device_sync(out[0])          # fast solve fully accounted first
             t_guard = time.perf_counter()
             exact = self._run_infer(task["x_q"], False)
-            same = bool(to_host((torch.argmax(out[0], dim=-1)
-                                 == torch.argmax(exact[0], dim=-1)).all()))
+            # one verdict for the whole batch: every rank keeps or drops
+            # the fast path together
+            differ = (torch.argmax(out[0], dim=-1)
+                      != torch.argmax(exact[0], dim=-1)).any()
+            same = not bool(to_host(group_max(differ.to(torch.int32),
+                                              self.group)))
             self._untimed_overhead_s = time.perf_counter() - t_guard
             first_check = self._cf_guard_pending
             self._cf_guard_pending = False

@@ -19,6 +19,7 @@ from torch import nn
 
 from ...ops.common import resolve_device
 from ...ops.cuda_attention import fused_attention_supported
+from ...parallel.task_parallel import gather_tasks, shard_task_batch
 from .config import CLIP_CONFIGS, CLIPConfig
 from .preprocess import CLIP_MEAN, CLIP_STD
 from .resnet import ModifiedResNet, fold_resnet_params
@@ -123,13 +124,32 @@ class TorchCLIP:
         self._std = torch.as_tensor(CLIP_STD, dtype=self.compute_dtype,
                                     device=self.device)
         self._tokenizer = None
+        self.group = None
+
+    def set_task_group(self, group):
+        """Batch-data-parallel encoding over ``group`` (a
+        parallel.TaskGroup; None: one device), the counterpart of the JAX
+        ``set_mesh``: each rank encodes its contiguous share of every image
+        batch and the embeddings are gathered in order on every rank. A
+        batch that does not divide over the ranks is encoded whole."""
+        self.group = group
+        return self
 
     # -- image ---------------------------------------------------------
     def encode_image_batch(self, images):
         """images [b, H, W, 3] NHWC, numpy or tensor: float32
         (CLIP-normalized) or raw uint8, normalized on the device in the
         compute dtype (``/ 255``, ``- mean``, ``/ std``, each rounded).
-        Returns [b, embed_dim] fp32 on the device, without waiting for it."""
+        Returns [b, embed_dim] fp32 on the device, without waiting for it.
+        Under a task group (``set_task_group``) every rank returns the whole
+        batch's embeddings."""
+        group = self.group
+        if group is not None and images.shape[0] % group.world == 0:
+            return gather_tasks(self._encode(shard_task_batch(images, group)),
+                                group)
+        return self._encode(images)
+
+    def _encode(self, images):
         x = torch.as_tensor(images).to(self.device, non_blocking=True)
         if x.dtype == torch.uint8:
             x = x.to(self.compute_dtype) / 255.0

@@ -6,7 +6,13 @@ The JAX package runs each solver as one device-side ``lax.while_loop``.
 Here the loops are Python loops over torch ops, and each stop test is one
 host transfer (``common.to_host``): the MM loop tests every 50 updates, the
 Minka fixed point every block of 4 iterations, and the Newton-Minka solve
-reads a device-side stop flag every NEWTON_CHECK_EVERY steps. The two
+reads a device-side stop flag every NEWTON_CHECK_EVERY steps. Each
+criterion is a ratio of sums over the whole batch, added up from per-task
+partial sums in task order (``parallel.batch_sum``). Under a task group
+(``share``, a parallel.TaskShare) the ranks' partial sums are gathered
+before the ratio is formed, at every Newton step, with no host read — the
+psum GSPMD inserts in the JAX loop — and the ratio is the single-process
+run's to the bit. The two
 kernel families ('pallas' and 'mm_pallas', names kept so configs work
 unchanged) run their whole loop on the card inside one launch
 (``cuda_dirichlet``) and make no transfer.
@@ -18,6 +24,7 @@ import math
 
 import torch
 
+from ..parallel.task_parallel import batch_sum
 from .common import to_host
 from .special import (
     digamma_pos,
@@ -31,8 +38,16 @@ from .special import (
 TRIGAMMA_1 = math.pi ** 2 / 6.0
 
 
-def _crit(num, den):
-    """num / max(den, 1e-30) in fp32, as a 0-d tensor."""
+def _per_task(x):
+    """Sum of each leading-axis slice of ``x``: [n, ...] -> [n]."""
+    return x.flatten(1).sum(-1) if x.dim() > 1 else x
+
+
+def _crit(num, den, share=None):
+    """num / max(den, 1e-30) in fp32, as a 0-d tensor, from per-task
+    partial sums num, den [n] added up over the batch (over the ranks of
+    ``share``'s group, as one [n, 2] gather)."""
+    num, den = batch_sum(torch.stack((num, den), -1), share)
     return num / torch.clamp_min(den, 1e-30)
 
 
@@ -71,7 +86,7 @@ def _mm_iteration(alpha, y_cst, alpha_floor=1e-11):
 
 
 def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
-                    check_every: int = 50, row_mask=None):
+                    check_every: int = 50, row_mask=None, share=None):
     """The reference's MM inner loop. At update indices 50, 100, ... the
     single-step relative change ||a_{l+1} - a_l||^2 / ||a_l||^2 is tested
     against ``tol`` and the loop breaks keeping a_{l+1}; exactly ``iter_mm``
@@ -97,12 +112,12 @@ def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
     while it < iter_mm:
         # checked step: one update, criterion on its single-step delta
         alpha_new = step(alpha, y_cst)
-        num = ((alpha_new - alpha) ** 2).sum()
+        num = _per_task((alpha_new - alpha) ** 2)
         live = alpha if mask is None else torch.where(mask, alpha, 0.0)
-        den = (live * live).sum()
+        den = _per_task(live * live)
         alpha = alpha_new
         rem = min(check_every - 1, iter_mm - it - 1)
-        if _below(_crit(num, den), tol):
+        if _below(_crit(num, den, share), tol):
             break
         for _ in range(rem):
             alpha = step(alpha, y_cst)
@@ -112,7 +127,7 @@ def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
 
 def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
                        check_every: int = 4, newton_iters: int = 3,
-                       row_mask=None):
+                       row_mask=None, share=None):
     """Minka's inverse-digamma fixed point a_d <- psi^{-1}(psi(sum a) + y_d)
     for the same stationarity equation as ``mm_update_alpha``, tested every
     ``check_every`` iterations. ``row_mask``: False rows are frozen at
@@ -131,10 +146,10 @@ def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
         for _ in range(check_every):
             alpha = one_iter(alpha)
         it += check_every
-        num = ((alpha - prev) ** 2).sum()
+        num = _per_task((alpha - prev) ** 2)
         live = prev if row_mask is None else torch.where(
             row_mask[..., None], prev, 0.0)
-        if _below(_crit(num, (live * live).sum()), tol):
+        if _below(_crit(num, _per_task(live * live), share), tol):
             break
     return alpha
 
@@ -149,7 +164,7 @@ NEWTON_CHECK_EVERY = 4
 
 def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
                               tol: float = 1e-11, newton_iters: int = 3,
-                              row_mask=None):
+                              row_mask=None, share=None):
     """Newton on the row sum s of F(s) = sum_d psi^{-1}(psi(s) + y_d) - s,
     with F'(s) = psi'(s) sum_d 1/psi'(a_d) - 1 — the same stationary point
     as the fixed point, reached quadratically. A guard takes the plain
@@ -182,9 +197,9 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
         s_new = newton_step(s)
         if live is not None:
             s_new = torch.where(live, s_new, s)
-        num = ((s_new - s) ** 2).sum()
+        num = _per_task((s_new - s) ** 2)
         s_live = s if live is None else torch.where(live, s, 0.0)
-        crit = _crit(num, (s_live * s_live).sum())
+        crit = _crit(num, _per_task(s_live * s_live), share)
         s = torch.where(done, s, s_new)
         done = done | (crit < tol)
         if it % check_every == 0 and it < max_iters and to_host(done):
@@ -215,7 +230,7 @@ def resolve_solver_for_width(solver: str, n_rows: int) -> str:
 
 
 def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
-                 row_mask=None):
+                 row_mask=None, share=None):
     """Dispatch between the reference-exact MM solver (torch ops, or the
     'mm_pallas' kernel), the Minka fixed point ('minka_fp'), the
     Newton-Minka solve ('minka') and the Minka kernel ('pallas'); all solve
@@ -226,9 +241,16 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
     kernels receive it folded into y as the ``ROW_FREEZE`` sentinel —
     genuine y entries are weighted means of log-simplex values, always
     <= ~1e-15, so a positive value cannot occur naturally).
+
+    ``share`` (a parallel.TaskShare): where these tasks sit in a batch
+    spread over a task group; the torch solvers' stop criteria are the
+    whole batch's. The kernels stop per (task, row block) and need no
+    group; a rank with no tasks launches nothing.
     """
     solver = resolve_solver_for_width(solver, alpha0.shape[-2])
     if solver in ("pallas", "mm_pallas"):
+        if alpha0.shape[0] == 0:
+            return alpha0.clone()
         from .cuda_dirichlet import ROW_FREEZE, dirichlet_row_solve, mm_row_solve
 
         if row_mask is not None:
@@ -238,9 +260,11 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
             return dirichlet_row_solve(alpha0, y_cst)
         return mm_row_solve(alpha0, y_cst, iter_mm=iter_mm)
     if solver == "minka":
-        return minka_newton_update_alpha(alpha0, y_cst, row_mask=row_mask)
+        return minka_newton_update_alpha(alpha0, y_cst, row_mask=row_mask,
+                                         share=share)
     if solver == "minka_fp":
-        return minka_update_alpha(alpha0, y_cst, row_mask=row_mask)
+        return minka_update_alpha(alpha0, y_cst, row_mask=row_mask,
+                                  share=share)
     if solver != "mm":
         # a typo must not silently select the (reference-exact but ~100x
         # slower) MM loop
@@ -248,7 +272,8 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
             f"unknown dirichlet_solver {solver!r}; expected one of "
             "'minka', 'minka_fp', 'pallas', 'mm', 'mm_pallas'"
         )
-    return mm_update_alpha(alpha0, y_cst, iter_mm=iter_mm, row_mask=row_mask)
+    return mm_update_alpha(alpha0, y_cst, iter_mm=iter_mm, row_mask=row_mask,
+                           share=share)
 
 
 def dirichlet_logits_cache(log_samples, alpha):
