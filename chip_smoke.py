@@ -146,7 +146,23 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    RN50 bf16 extraction (K5, K4a) over 1024 images, half of every batch a
    rank, its cache's top-1 labels equal to the single-process cache's
    (task_parallel_two_ranks). The kernels' launches in the group runs are
-   ``task_parallel_launches`` in the kernels line.
+   ``task_parallel_launches`` in the kernels line;
+14. class-axis tensor parallelism (``run_class_tp``): two ranks spawned
+   on this card over gloo, laid out as dp 1 x tp 2, each holding half of
+   every task's cluster rows or class weights: one zero-shot batch at the
+   protocol of soft EM-Dirichlet ``pallas`` (K1 on the rows' shards, the
+   compact_first guard included) and of hard ``mm_pallas`` (K2),
+   CLASS_TP_FS_TASKS 4-shot tasks (K = d = 1000, 4000 support rows) of
+   few-shot EM-Dirichlet ``pallas`` and of TIM_ITER_DEFAULT alpha-TIM steps
+   (autodiff), each held against the same batch in this process
+   (predictions and accuracies equal, u and the criterions within the
+   tests' tp limits), with each run's collectives and bytes, every rank's
+   peak card memory beside one process's, and first-batch ms per task;
+   the kernels launched there are ``class_tp_launches`` in the kernels
+   line (class_tp_two_ranks);
+15. ``scripts/run_synthetic_protocol_torch.py --quick --check`` on the
+   card, in a process of its own: all 15 methods above their accuracy
+   floors and under their latency ceilings (synthetic_protocol).
 
 With random weights an accuracy only has to be finite and in [0, 1].
 
@@ -315,6 +331,8 @@ VISUAL_NOISE = VISUAL_DIM ** -0.5
 # and the images of the two-rank extraction (two batches of EXTRACT_BATCH)
 TP_BATCHES = 3
 TP_IMAGES = 2 * EXTRACT_BATCH
+# phase class_tp_two_ranks: the few-shot tasks of its 4-shot runs
+CLASS_TP_FS_TASKS = 20
 
 
 def log(msg):
@@ -971,9 +989,9 @@ def run_few_shot(root, counters, records, launches):
         update_alpha, full_width = tem.update_alpha, []
 
         def kept_update_alpha(alpha0, y_cst, iter_mm=1000, solver="mm",
-                              row_mask=None, share=None):
+                              row_mask=None, share=None, cs=None):
             out = update_alpha(alpha0, y_cst, iter_mm=iter_mm, solver=solver,
-                               row_mask=row_mask, share=share)
+                               row_mask=row_mask, share=share, cs=cs)
             if alpha0.shape[1] == N_CLASS:
                 full_width.append((alpha0.clone(), y_cst.clone(), out.clone(),
                                    {"iter_mm": iter_mm}))
@@ -2109,11 +2127,11 @@ def run_extraction(root, counters, records, launches):
         del model, first
         torch.cuda.empty_cache()
 
-def _tp_zero_shot_batch(root, solver):
-    """(args, the whole task dict) of one zero-shot batch at the protocol
-    (N_TASK tasks x N_QUERY queries x K = N_CLASS) drawn from the synthetic
-    test cache by the evaluator's sampler with SEED: the same batch in
-    every process that asks."""
+def _tp_zero_shot_batch(root, solver, method="em_dirichlet"):
+    """(args, the whole task dict) of one zero-shot batch of ``method`` at
+    the protocol (N_TASK tasks x N_QUERY queries x K = N_CLASS) drawn from
+    the synthetic test cache by the evaluator's sampler with SEED: the same
+    batch in every process that asks."""
     import numpy as np
 
     from transductive_clip_tpu_torch import cli
@@ -2128,7 +2146,7 @@ def _tp_zero_shot_batch(root, solver):
 
     args = cli.parse_args([
         "--config-root", os.path.join(HERE, "config"), "--opts", "dataset",
-        "imagenet", "shots", "0", "method", "em_dirichlet",
+        "imagenet", "shots", "0", "method", method,
         "dirichlet_solver", solver, "n_query", str(N_QUERY), "batch_size",
         str(N_TASK), "root", root, "matching_backend", "device"])
     feats, labels = load_feature_cache(softmax_cache_path(
@@ -2398,6 +2416,186 @@ def run_task_parallel(root, counters, records):
     log(f"task_parallel launches {dp_launches}")
 
 
+def _class_tp_cases(root, device):
+    """(label, method on ``device``, task dict) of every run of phase
+    class_tp_two_ranks, the same in every process: one zero-shot batch of
+    soft EM-Dirichlet 'pallas' (K1 on the compact rows' shards, the
+    compact_first guard included) and of hard 'mm_pallas' (K2, at full
+    width on iteration 1), at the protocol; CLASS_TP_FS_TASKS few-shot
+    tasks at the 4-shot width (K = d = N_CLASS, SHOTS x N_CLASS support
+    rows, N_QUERY queries, drawn with SEED) through few-shot EM-Dirichlet
+    'pallas' and TIM_ITER_DEFAULT Adam steps of alpha-TIM (autodiff: tp
+    turns 'pallas' off, so the single run takes autodiff too)."""
+    import numpy as np
+
+    from transductive_clip_tpu_torch import cli
+    from transductive_clip_tpu_torch.methods import (
+        get_few_shot_method,
+        get_zero_shot_method,
+    )
+    from transductive_clip_tpu_torch.utils.synthetic import (
+        make_few_shot_tasks,
+    )
+
+    for method, solver in (("em_dirichlet", "pallas"),
+                           ("hard_em_dirichlet", "mm_pallas")):
+        args, batch = _tp_zero_shot_batch(root, solver, method)
+        yield (f"zero-shot {method} {solver}",
+               get_zero_shot_method(args.name_method, device=device,
+                                    args=args), batch)
+    xs, ys, xq, yq = make_few_shot_tasks(
+        np.random.default_rng(SEED), CLASS_TP_FS_TASKS, N_QUERY, N_CLASS,
+        SHOTS)
+    batch = {"x_s": xs, "y_s": ys, "x_q": xq, "y_q": yq}
+    for opts in (["method", "em_dirichlet", "dirichlet_solver", "pallas"],
+                 ["method", "alpha_tim", "tim_grad_impl", "autodiff",
+                  "iter", str(TIM_ITER_DEFAULT)]):
+        args = cli.parse_args([
+            "--config-root", os.path.join(HERE, "config"), "--opts",
+            "dataset", "imagenet", "shots", str(SHOTS), "n_query",
+            str(N_QUERY), "batch_size", str(CLASS_TP_FS_TASKS), *opts])
+        yield (f"few-shot {' '.join(opts[1::2][:2])}",
+               get_few_shot_method(args.name_method, device=device,
+                                   args=args), batch)
+
+
+def _class_tp_run(method, batch, device):
+    """One blocking ``run_task`` of ``method`` on ``batch``, with u kept:
+    (logs, u on the host, peak bytes the run allocated on the card, the
+    collectives it issued and the bytes its all-reduces moved)."""
+    import torch
+
+    from transductive_clip_tpu_torch.parallel import task_parallel as tp
+
+    infer = method._infer
+
+    def kept(task):
+        out = infer(task)
+        kept.u = out[0]
+        return out
+
+    method._infer = kept
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    calls = tp.all_reduce.calls + tp.gather_host.calls
+    nbytes = tp.all_reduce.bytes
+    logs = method.run_task(batch)
+    u = kept.u.cpu().numpy()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    return (logs, u, peak, tp.all_reduce.calls + tp.gather_host.calls - calls,
+            tp.all_reduce.bytes - nbytes)
+
+
+def _class_tp_rank(group, root):
+    """One rank of phase class_tp_two_ranks (dp 1 x tp 2, both on cuda:0):
+    every kernel count set to 0, then every run of ``_class_tp_cases`` on
+    this rank's half of the classes. Rank 0 returns each run's predictions,
+    accuracies, criterions, u, ms per task, collectives and bytes, every
+    rank's peak bytes, and the kernels' launches summed over both ranks."""
+    from transductive_clip_tpu_torch.parallel import (
+        class_layout,
+        gather_host,
+        shard_task_batch,
+    )
+
+    group = class_layout(group, 2)
+    counters = _kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = {}
+    for label, method, batch in _class_tp_cases(root, group.device):
+        logs, u, peak, calls, nbytes = _class_tp_run(
+            method.set_task_group(group), shard_task_batch(batch, group),
+            group.device)
+        out[label] = dict(preds=logs["preds"], acc=logs["acc"],
+                          crit=logs["criterions"], u=u,
+                          ms=1e3 * logs["timestamps"], calls=calls,
+                          bytes=nbytes,
+                          peak=gather_host(peak, group, world=True))
+    every = gather_host({name: w.launches for name, w in counters.items()},
+                        group, world=True)
+    out["launches"] = {name: sum(r[name] for r in every) for name in counters}
+    return out if group.rank == 0 else None
+
+
+def run_class_tp(root, records):
+    """Phase class_tp_two_ranks: class-axis tensor parallelism on the card.
+    Two ranks spawned on this one card (gloo: NCCL refuses two ranks a
+    card, phase task_parallel_two_ranks), laid out as dp 1 x tp 2, so that
+    each holds half of every task's cluster rows (alpha [N, K/2, K]) or
+    class weights; every run of ``_class_tp_cases`` is held batch for batch
+    against the same batch in this process: predictions and accuracies
+    equal, u within 1e-6 of it (tests/test_torch_class_tp.py's limit against
+    one process) and the criterions within rtol 2e-3 / atol 1e-5 (the
+    class group sums a task's partial sums in another order). Logs each run's collectives and the bytes they
+    move, every rank's peak card memory beside this process's, and the ms
+    per task of a first batch on a card the ranks share (no claim). The
+    kernels launched in the group runs are ``class_tp_launches``."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch.parallel import spawn_ranks
+
+    with Phase("class_tp_two_ranks"):
+        log(_smi())
+        got = spawn_ranks(_class_tp_rank, 2, (root,), device="cuda:0",
+                          backend="gloo", timeout=900)
+        counters = _kernel_counters()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        for label, method, batch in _class_tp_cases(root, "cuda:0"):
+            logs, u, peak, _, _ = _class_tp_run(method, batch, "cuda:0")
+            g = got[label]
+            du = float(np.abs(g["u"] - u).max())
+            dcrit = float(np.abs(g["crit"] - np.asarray(logs["criterions"])
+                                 ).max())
+            log(f"class_tp {label}: {len(g['acc'])} tasks, accuracy "
+                f"{float(g['acc'].mean()):.6f}, max |du| {du:.3e}, max "
+                f"|dcrit| {dcrit:.3e}; collectives a batch {g['calls']} "
+                f"moving {g['bytes']} bytes; peak MiB per rank "
+                f"{[round(p / 2**20, 1) for p in g['peak']]} against "
+                f"{peak / 2**20:.1f} in one process; ms_per_task "
+                f"{g['ms']:.4f} on 2 ranks sharing the card (first batch), "
+                f"{1e3 * logs['timestamps']:.4f} alone (first batch)")
+            if not (np.array_equal(g["preds"], logs["preds"])
+                    and np.array_equal(g["acc"], logs["acc"])):
+                fail(f"class_tp {label}: predictions or accuracies differ "
+                     "from the single-process batch")
+            if not (np.allclose(g["u"], u, rtol=0.0, atol=1e-6)
+                    and np.allclose(g["crit"], logs["criterions"],
+                                    rtol=2e-3, atol=1e-5)):
+                fail(f"class_tp {label}: u or the criterions out of limits")
+            del u, g["u"]
+        launches = got["launches"]
+        log(f"class_tp launches summed over the ranks {launches}; the "
+            f"same runs in one process "
+            f"{ {name: w.launches for name, w in counters.items()} }")
+        for name in ("dirichlet_row_solve", "mm_row_solve"):
+            if launches[name] <= 0:
+                fail(f"the class-TP runs launched {name} 0 times")
+        for name, n in launches.items():
+            records[name]["class_tp_launches"] = n
+        torch.cuda.empty_cache()
+
+
+def run_synthetic_protocol():
+    """Phase synthetic_protocol: scripts/run_synthetic_protocol_torch.py
+    --quick --check on the card, in a process of its own; fails unless it
+    exits 0."""
+    with Phase("synthetic_protocol"):
+        out = subprocess.run(
+            [sys.executable, os.path.join(
+                HERE, "scripts", "run_synthetic_protocol_torch.py"),
+             "--quick", "--check"], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        for line in out.stdout.splitlines():
+            log(f"synthetic_protocol: {line}")
+        if out.returncode != 0:
+            fail(f"run_synthetic_protocol_torch.py --quick --check exited "
+                 f"{out.returncode}: {out.stderr[-2000:]}")
+
+
 def main():
     import torch
 
@@ -2572,6 +2770,8 @@ def main():
                 profile_batch(root, solver)
         run_extraction(root, counters, records, launches)
         run_task_parallel(root, counters, records)
+        run_class_tp(root, records)
+    run_synthetic_protocol()
 
     listing = []
     for name, (_, _, replaces, source) in kernels.items():
@@ -2601,6 +2801,7 @@ def main():
                                          "visual_path_launches",
                                          "methods_launches",
                                          "task_parallel_launches",
+                                         "class_tp_launches",
                                          "rounds_max",
                                          "rounds_mean", "bids", "scans",
                                          "ms_per_round")

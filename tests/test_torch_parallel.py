@@ -14,7 +14,8 @@ cluster compaction and early stop, 'mm', 'pallas' through its plain
 version; task compaction engaged), with the control that the ranks' shards
 run alone stop elsewhere than the whole batch; alpha-TIM and few-shot
 EM-Dirichlet; the zero-shot evaluator on its three routes and the few-shot
-one; batch-DP extraction; the CLI's spawn launcher; ``tp`` 2.
+one; batch-DP extraction; the CLI's spawn launcher; a ``tp`` that does not
+divide the ranks.
 """
 
 import functools
@@ -539,16 +540,26 @@ def test_cli_spawn_launcher_writes_the_single_run_row(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["evaluator", "cli"])
 def test_tp_above_one_raises_class_tp(rng, entry):
-    """Class-axis tensor parallelism is not ported: tp 2 raises naming the
-    roadmap item, in the evaluator and in the CLI."""
+    """tp 3 on 2 ranks raises the ValueError of JAX's ``make_mesh`` (tp must
+    divide the ranks) in the evaluator and in the CLI's launcher, before
+    any rank joins a group. Class-axis TP itself runs
+    (tests/test_torch_class_tp.py)."""
     from transductive_clip_tpu_torch.eval import EvaluatorZeroShot
+    from transductive_clip_tpu_torch.parallel import TaskGroup
 
+    msg = "n_devices=2 not divisible by tp=3"
     if entry == "cli":
-        with pytest.raises(NotImplementedError, match="'class-TP'"):
-            cli.main(["--config-root", CONFIG_ROOT, "--opts", "dataset",
-                      "imagenet", "data_parallel", "True", "tp", "2"])
+        with pytest.raises(ValueError, match=msg):
+            cli.launch_workers(["--config-root", CONFIG_ROOT, "--opts",
+                                "dataset", "imagenet", "data_parallel",
+                                "True", "tp", "3"], 2, device="cpu")
         return
+    from transductive_clip_tpu.parallel import make_mesh
+
+    with pytest.raises(ValueError, match=msg):
+        make_mesh(n_devices=2, tp=3)
     feats, labels = _zs_features()
-    with pytest.raises(NotImplementedError, match="'class-TP'"):
-        EvaluatorZeroShot(device="cpu", args=_zs_cfg(
-            CfgNode, True, tp=2)).evaluate_tasks(feats, labels)
+    group = TaskGroup(0, 2, torch.device("cpu"), None, None)
+    with pytest.raises(ValueError, match=msg):
+        EvaluatorZeroShot(args=_zs_cfg(CfgNode, True, tp=3),
+                          group=group).evaluate_tasks(feats, labels)

@@ -19,7 +19,12 @@ batches) over all local cards, one process per card:
 joins the group on ``cuda:{LOCAL_RANK}``; started plainly with several
 visible cards the CLI spawns one worker per card itself
 (``launch_workers``); with one card it runs the single-device path. The
-CLIP model is
+ranks form a (dp, tp) grid: ``tp 0`` (the default) is ``choose_layout``'s
+pick, which gives the class axis as many ranks as divide the world and
+``n_class`` (at most 8) once ``n_class`` >= 512, and 1 below; ``tp 2``
+etc. splits each task's classes over that many ranks
+(``torchrun --nproc_per_node 4 ... data_parallel True tp 2``). The CLIP
+model is
 loaded only when a feature cache is missing: then the towers extract the
 features from the dataset's images (the checkpoint from
 ``$CLIP_WEIGHTS_DIR``, the BPE merges from ``$CLIP_BPE_PATH``; decoding the
@@ -128,12 +133,20 @@ def _run_rank(group, argv):
     return run(parse_args(argv), group)
 
 
+def _check_layout(args, world: int):
+    """Raise JAX's ``ValueError`` before any rank starts when the ``tp`` of
+    ``args`` does not divide ``world`` ranks (the evaluator lays the group
+    out, ``parallel.resolve_tp``)."""
+    resolve_tp(args.get("tp", 0), world, args.get("n_class", 0))
+
+
 def launch_workers(argv, world: int, device=None):
     """Spawn ``world`` workers (start method ``spawn``, ``FileStore``
     rendezvous), worker r on ``cuda:{r}`` — or all on ``device`` (the tests
     pass ``"cpu"``) — each running the evaluation of ``argv`` as a rank of
-    one task group; returns rank 0's (mean accuracy, mean seconds per
-    task)."""
+    one task group (the evaluator lays it out from ``tp``); returns rank
+    0's (mean accuracy, mean seconds per task)."""
+    _check_layout(parse_args(argv), world)
     return spawn_ranks(_run_rank, world, (argv,), device=device)
 
 
@@ -145,8 +158,8 @@ def main(argv=None):
     card it runs the single-device path."""
     args = parse_args(argv)
     if _parse_flag(args.get("data_parallel", False), "data_parallel"):
-        resolve_tp(args.get("tp", 0))
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            _check_layout(args, int(os.environ["WORLD_SIZE"]))
             group = make_task_group()
             try:
                 return run(args, group)

@@ -11,9 +11,10 @@ takes any iterable of ``(uint8 or float32 NHWC batch, labels)``.
 With ``data_parallel`` and a task group (parallel/) extraction is
 batch-data-parallel: each rank encodes its share of every image batch
 (``TorchCLIP.set_task_group``), every rank gets the whole batch's
-embeddings, rank 0 writes the caches and the ranks wait for it. The text
-prototypes are computed on every rank (identical, so nothing is
-exchanged) and written by rank 0.
+embeddings, rank 0 writes the caches and the ranks wait for it. Every
+rank of the world takes a share, whatever the group's ``tp``: the JAX
+package extracts on ``make_mesh(tp=1)``. The text prototypes are computed
+on every rank (identical, so nothing is exchanged) and written by rank 0.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..features.cache import (
     visual_cache_path,
 )
 from ..ops.common import to_host
-from ..parallel import barrier
+from ..parallel import barrier, class_layout
 
 
 def _require_model(model, what):
@@ -149,6 +150,9 @@ def ensure_features(args, model, preprocess=None, splits=("test",),
     _require_model(model, "Feature extraction")
     if not _parse_flag(args.get("data_parallel", False), "data_parallel"):
         group = None
+    # every rank on the task axis, whatever the evaluation's tp: the JAX
+    # package extracts on make_mesh(tp=1)
+    group = class_layout(group, 1)
     model.set_task_group(group)
     # every rank has looked for the caches before rank 0 writes any
     barrier(group)

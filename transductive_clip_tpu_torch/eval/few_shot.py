@@ -181,13 +181,14 @@ class EvaluatorFewShot:
             f"on {args.dataset} ({args.used_test_set} set, {args.shots}-shot)"
         )
         rng = np.random.default_rng(args.seed if args.seed is not None else None)
-        group = _maybe_task_group(args, self.group, self.logger)
         if args.used_test_set == "test" and args.tunable:
             self.set_method_opt_param()
         method = get_few_shot_method(
             args.name_method, device=self.device, args=args,
             log_file=self.log_file,
-        ).set_task_group(group)
+        )
+        group = _maybe_task_group(args, self.group, method, self.logger)
+        method.set_task_group(group)
         timer = PhaseTimer()
         n_class = int(args.n_class)
         flip = bool(args.use_softmax_feature)

@@ -20,7 +20,10 @@ rows of the batch, or on the fused route of its index matrix); the method
 reduces its batch-wide decisions over the group, each rank gathers the
 per-task accuracies after its route's own fetch, and rank 0 logs and
 writes the TSV row. The time per task is the slowest rank's over the
-whole batch.
+whole batch. The group is laid out as (dp, tp) from ``tp``
+(``parallel.resolve_tp``; 0 is ``choose_layout``'s pick for ``n_class``):
+the tp ranks of a dp slice hold the same tasks and split their classes,
+and the results come from the task group at t = 0.
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ from ..features.cache import (
 from ..methods import get_zero_shot_method
 from ..methods.base import fetch_tree
 from ..ops.common import resolve_device
-from ..parallel import gather_host, resolve_tp, shard_task_batch
+from ..parallel import (
+    class_layout,
+    gather_host,
+    resolve_tp,
+    shard_task_batch,
+)
 from ..tasks import (
     CategoriesSamplerZeroShot,
     SamplerQueryZeroShot,
@@ -133,31 +141,36 @@ def finalize_deferred(deferred, t_tail0, batch_size, results_task,
     results_time.extend(times)
 
 
-def _maybe_task_group(args, group, logger=None):
+def _maybe_task_group(args, group, method, logger=None):
     """The task group a batch is spread over (counterpart of the JAX
-    ``_maybe_task_mesh``): ``group`` (the caller's parallel.TaskGroup) when
-    ``data_parallel`` is on. None — the single-device path — when it is
-    off, when there is no group (one device), or when ``batch_size`` does
-    not divide over the ranks: then every rank runs the whole batch and
-    rank 0 reports. ``tp`` > 1 raises (class-TP is not ported)."""
+    ``_maybe_task_mesh``): ``group`` (the caller's parallel.TaskGroup) laid
+    out as (dp, tp) from ``tp`` (``resolve_tp``: 0 picks
+    ``choose_layout``'s layout for ``n_class`` where ``method`` shards its
+    classes, else tp 1; a ``tp`` that does not divide the ranks raises
+    JAX's ``ValueError``) when ``data_parallel`` is on. None — the single-device path — when it is off, when there is no
+    group (one device), or when ``batch_size`` does not divide over dp:
+    then every rank runs the whole batch and rank 0 reports. Every rank
+    calls it, in the same order (a new layout creates process groups)."""
     if not _parse_flag(args.get("data_parallel", False), "data_parallel"):
         return None
-    resolve_tp(args.get("tp", 0), logger)
     if group is None:
         if logger:
             logger.info("data_parallel: one device and no task group; "
                         "running single-device")
         return None
-    if int(args.batch_size) % group.world != 0:
+    group = class_layout(group, resolve_tp(
+        args.get("tp", 0), group.world, args.get("n_class", 0),
+        method.shards_classes, logger))
+    if int(args.batch_size) % group.dp != 0:
         if logger:
             logger.info(
                 f"data_parallel requested but batch_size={args.batch_size} "
-                f"is not divisible by dp={group.world}; running "
+                f"is not divisible by dp={group.dp}; running "
                 "single-device on every rank")
         return None
     if logger:
-        logger.info(f"data_parallel: task group dp={group.world} tp=1 on "
-                    f"{group.device}")
+        logger.info(f"data_parallel: task group {group.layout} over "
+                    f"{group.world} ranks on {group.device}")
     return group
 
 
@@ -270,12 +283,13 @@ class EvaluatorZeroShot:
             f"=> Running evaluation with method {args.name_method} "
             f"on {args.dataset} ({args.used_test_set} set)"
         )
-        group = _maybe_task_group(args, self.group, self.logger)
         rng = np.random.default_rng(args.seed if args.seed is not None else None)
         method = get_zero_shot_method(
             args.name_method, device=self.device, args=args,
             log_file=self.log_file,
-        ).set_task_group(group)
+        )
+        group = _maybe_task_group(args, self.group, method, self.logger)
+        method.set_task_group(group)
         timer = PhaseTimer()
         # device-resident feature table: rows are gathered on the device
         # per batch (device_gather: False restores the host gather+stack)

@@ -19,9 +19,13 @@ many batches in one transfer; accuracies and predictions are bit-equal to
 ``run_task``'s.
 
 Under a task group (``set_task_group``, parallel/) ``run_task`` and the
-pipelines take this rank's share of a batch; the methods' batch-wide
+pipelines take this rank's dp slice of a batch; the methods' batch-wide
 decisions and criterion traces are the whole batch's, and ``run_task``
-returns the whole batch's accuracies and predictions.
+returns the whole batch's accuracies and predictions. Under ``tp`` > 1 the
+EM-Dirichlet methods and alpha-TIM / TIM-GD shard their class state over
+the class group and return u whole; the other methods have no class
+sharding in the JAX package either (only its dp constraint), so the tp
+ranks of a slice repeat its work, as GSPMD may, and give the same answer.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from ..ops.matching import (
     hungarian_matching,
     hungarian_matching_rows,
 )
-from ..parallel.task_parallel import gather_host, group_max, group_sum
+from ..parallel.task_parallel import gather_host, group_max, task_sum
 
 # what ``matching_backend: auto`` resolves to on a CUDA device (on the CPU
 # it is 'host', as the JAX package resolves it off the TPU). Chosen by the
@@ -60,14 +64,6 @@ from ..parallel.task_parallel import gather_host, group_max, group_sum
 # with the host JV solver, whose [100, 75, 1000] prototype rows cross to
 # the host every batch (H100 80GB HBM3, 700 W; PERF.md)
 AUTO_MATCHING_CUDA = "device"
-
-
-def unported(what: str, roadmap_item: str):
-    """The error every entry point raises for a path still to port."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        f"(ROADMAP.md: {roadmap_item})"
-    )
 
 
 def init_soft_assignments(query, cfg, text_features=None):
@@ -508,6 +504,10 @@ class TransductiveMethod:
     #: the trace is a mean over the rank's tasks, which ``_infer_group``
     #: makes the whole batch's
     reduces_over_group = False
+    #: True where the method holds 1/tp of its class state on each rank of
+    #: a class group (``parallel.class_shard``); else the tp ranks of a dp
+    #: slice repeat its work, and ``tp: 0`` resolves to 1 for it
+    shards_classes = False
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         self.model = model
@@ -575,13 +575,14 @@ class TransductiveMethod:
     def _infer_group(self, task):
         """``_infer``, with the criterion trace made the whole batch's under
         a task group where the method's loop does not do it itself: every
-        rank holds as many tasks, so the batch mean is the mean of the
-        ranks' means."""
+        dp slice holds as many tasks, so the batch mean is the mean of the
+        slices' means (over the task group: the tp ranks of a slice hold
+        the same one)."""
         out = self._infer(task)
         if self.group is None or self.reduces_over_group:
             return out
         u, criterions, n_exec = split_infer_out(out)
-        criterions = group_sum(criterions, self.group) / self.group.world
+        criterions = task_sum(criterions, self.group) / self.group.dp
         return u, criterions, n_exec
 
     def _infer_chunked(self, task):

@@ -37,7 +37,14 @@ every width.
 Under a task group (``group``, parallel/) the stop test's max, the
 populated count, the solvers' criteria and the criterion trace are the
 whole batch's, gathered over its ranks before they are read, as in the
-zero-shot method.
+zero-shot method. Under class-axis tensor parallelism (``tp`` > 1) it takes
+the zero-shot method's layout: rank t holds the cluster rows
+[t K/tp, (t+1) K/tp) of alpha, alpha_base, the support statistics and u;
+the support statistics enter y for the local rows only; the compact
+selection is the batch's, made on the gathered masses, and each rank
+solves the selected populated rows it owns (a rank's other rows sit at
+alpha_base, so the padding of its buffer takes alpha_base, as the
+zero-mass rows do).
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from ...ops.common import EPS, get_one_hot, select_rows_covering, to_host
-from ...parallel.task_parallel import batch_rows, task_share
+from ...parallel.task_parallel import batch_rows, class_shard, task_share
 from ...ops.dirichlet import (
     dirichlet_logits_cache,
     resolve_solver_for_width,
@@ -54,7 +61,12 @@ from ...ops.dirichlet import (
     update_logits_cache_rows,
 )
 from ..base import FewShotMethod, PendingCompactionCheck, compact_select_impl
-from ..zero_shot.em_dirichlet import compaction_geometry
+from ..zero_shot.em_dirichlet import (
+    compaction_geometry,
+    finish_assignments,
+    owned_rows,
+    rel_per_task,
+)
 
 _COMPACT_MARGIN = 16
 # fast-tier row count for the two-tier compact solve, gated exactly on the
@@ -81,56 +93,64 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
     compact iteration consumed (host ints). ``early_stop_tol`` is compared
     in fp32, as the JAX package compares it. ``group``: the tasks are this
     rank's equal share of the group's batch, whose decisions and criterion
-    trace these are.
+    trace these are. Under ``group.tp`` > 1 this rank holds 1/tp of the
+    cluster rows (module docstring), and u comes back whole.
     """
     n_task, n_query, _ = query.shape
     device = query.device
     share = task_share(group, n_task, device)
     n_all = n_task if share is None else share.size
+    cs = class_shard(group, n_class)
+    n_rows = cs.width
     tol = np.float32(early_stop_tol)
     log_s = torch.log(support + EPS)
     log_q = torch.log(query + EPS)
-    y_s_one_hot = get_one_hot(y_s, n_class)                       # [N, s, K]
+    # this rank's clusters' one-hot columns (labels elsewhere: none)
+    y_s_one_hot = get_one_hot(y_s - cs.lo, n_rows)                   # [N, s, K]
     y_s_sum = y_s_one_hot.sum(1)                                  # [N, K]
     # support statistics are constant across iterations
     supp_stat = torch.einsum("tsk,tsd->tkd", y_s_one_hot, log_s)
 
-    alpha0 = torch.ones((n_task, n_class, n_class), dtype=torch.float32,
+    alpha0 = torch.ones((n_task, n_rows, n_class), dtype=torch.float32,
                         device=device)
     n_compact, engaged = compaction_geometry(n_query, n_class)
     use_compact = compact and engaged
     n_fast = min(_COMPACT_FAST, n_compact)
-    # one solver family for both tiers
+    # one solver family for both tiers, resolved at the whole widths
     solver_c = resolve_solver_for_width(solver, n_compact)
+    solver = resolve_solver_for_width(solver, n_class)
 
     def finish_step(u, l12, l3):
         # v (class-proportion dual) is a pure function of the incoming u
         v = torch.log(u.mean(1) + EPS) + 1.0
-        u = torch.softmax(l12[:, None, :] + l3 + lambd * v[:, None, :] / n_query,
-                          dim=2)
-        if hard:
-            u = get_one_hot(torch.argmax(u, dim=-1), n_class)
-        return u
+        return finish_assignments(
+            l12[:, None, :] + l3 + lambd * v[:, None, :] / n_query, hard, cs)
 
     def step_full(u, alpha_old):
         query_stat = torch.einsum("tnk,tnd->tkd", u, log_q)
         y_cst = (supp_stat + query_stat) / (y_s_sum + u.sum(1))[..., None]
         alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver,
-                             share=share)
+                             share=share, cs=cs)
         l12, l3 = dirichlet_logits_cache(log_q, alpha)
         return finish_step(u, l12, l3), alpha, l12, l3
 
-    def compact_rows(u, alpha_old, alpha_base, pop):
+    def compact_rows(u, alpha_old, alpha_base, pop, share_max):
         """Select the top-C rows by query mass, solve the populated ones,
         and substitute the pure-support fixed point for zero-mass rows.
         ``pop`` is the host batch max of u's populated count (the gate of
-        the fast tier and of the 'rank' selection).
+        the fast tier and of the 'rank' selection); ``share_max`` the
+        largest count of it on one class rank (the buffer's width under
+        tp > 1, where the fast tier is off).
 
         Returns (idx, alpha_c, alpha_c_old): the selected rows, their new
         and their previous values."""
-        u_sum = u.sum(1)                                          # [N, K]
-        mass, idx = select_rows_covering(u_sum, n_compact, 0.0, select,
-                                         populated_max=pop)
+        mass, idx = select_rows_covering(
+            cs.gather(u.sum(1)), n_compact, 0.0, select, populated_max=pop)
+        tier = n_fast < n_compact and pop <= n_fast
+        if cs.tp > 1:
+            idx, mass = owned_rows(
+                idx, mass, cs, max(1, min(n_compact, n_rows, share_max)), 0.0)
+            tier = False
         u_c = torch.gather(u, 2, idx[:, None, :].expand(-1, n_query, -1))
         query_stat_c = torch.einsum("tnc,tnd->tcd", u_c, log_q)
         supp_c = torch.gather(supp_stat, 1, _rows(idx, n_class))
@@ -141,9 +161,9 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
 
         def solve(a_old, y, m):
             return update_alpha(a_old, y, iter_mm=iter_mm, solver=solver_c,
-                                row_mask=m, share=share)
+                                row_mask=m, share=share, cs=cs)
 
-        if n_fast < n_compact and pop <= n_fast:
+        if tier:
             a = solve(alpha_c_old[:, :n_fast], y_c[:, :n_fast],
                       row_mask[:, :n_fast])
             alpha_c = torch.cat([a, alpha_c_old[:, n_fast:]], dim=1)
@@ -155,9 +175,11 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         base_c = torch.gather(alpha_base, 1, _rows(idx, n_class))
         return idx, torch.where(row_mask[..., None], alpha_c, base_c), alpha_c_old
 
-    def step_compact(u, alpha, l12, l3, prev_idx, alpha_base, pop):
+    def step_compact(u, alpha, l12, l3, prev_idx, alpha_base, pop,
+                     share_max):
         """A compact iteration; ``alpha`` is updated IN PLACE."""
-        idx, alpha_c, alpha_c_old = compact_rows(u, alpha, alpha_base, pop)
+        idx, alpha_c, alpha_c_old = compact_rows(u, alpha, alpha_base, pop,
+                                                 share_max)
         # rows selected last iteration but not now take alpha_base (see the
         # JAX function for the over-capacity argument)
         base_prev = torch.gather(alpha_base, 1, _rows(prev_idx, n_class))
@@ -175,6 +197,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         delta_ss = ((alpha_c ** 2 - alpha_c_old ** 2).sum((1, 2))
                     + torch.where(notin[..., None],
                                   base_prev ** 2 - a_prev ** 2, 0.0).sum((1, 2)))
+        diff_ss, delta_ss = cs.sum(torch.stack((diff_ss, delta_ss)))
         # one incremental cache update: transitioned rows take the base
         # values, selected rows their new alpha
         idx_all = torch.cat([prev_idx, idx], dim=1)
@@ -184,28 +207,24 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
                                            row_mask=mask_all)
         return finish_step(u, l12, l3), alpha, l12, l3, idx, diff_ss, delta_ss
 
-    def crit_fn(alpha_old, alpha):
-        """Per-task relative change [N]: its mean is recorded (reference
-        parity), its max gates early stop."""
-        diff = torch.sqrt(((alpha_old - alpha) ** 2).sum((1, 2)))
-        return diff / torch.sqrt((alpha_old ** 2).sum((1, 2)))
-
     def observe(rel, u):
         """The iteration's criterion (the batch's mean relative change) and
-        its one host transfer: the batch-max relative change and the
-        batch-max populated count of the new u. Under a group both are
-        first gathered, in one collective (the counts ride as fp32, exact
-        below 2^24)."""
-        both = batch_rows(torch.stack(
-            (rel, (u.sum(1) > 0).sum(-1).to(rel.dtype)), 1), share)
-        crit_max, pop = to_host(both[:, 0].max(), both[:, 1].max())
-        return both[:, 0].sum() / n_all, crit_max, int(pop)
+        its one host transfer: the batch-max relative change, the
+        batch-max populated count of the new u and the largest share of it
+        on one class rank. Under a group they are first gathered, in one
+        collective (the counts ride as fp32, exact below 2^24)."""
+        pops = cs.per_rank((u.sum(1) > 0).sum(-1).to(rel.dtype))
+        both = batch_rows(torch.cat((rel[:, None], pops), 1), share)
+        crit_max, pop, share_max = to_host(
+            both[:, 0].max(), both[:, 1:].sum(1).max(), both[:, 1:].max())
+        return (both[:, 0].sum() / n_all, crit_max, int(pop),
+                int(share_max))
 
     # iteration 1 always solves all K rows (the dense initial u = query
     # gives every row query mass)
-    u, alpha, l12, l3 = step_full(query, alpha0)
-    rel = crit_fn(alpha0, alpha)
-    crit, crit_max, pop = observe(rel, u)
+    u, alpha, l12, l3 = step_full(cs.cols(query), alpha0)
+    rel = rel_per_task(alpha0, alpha, cs)
+    crit, crit_max, pop, share_max = observe(rel, u)
     crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
     pop_max = 0
@@ -217,38 +236,40 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         # every zero-query-mass row; warm-started from iteration 1's alpha
         y_pure = supp_stat / torch.clamp_min(y_s_sum, EPS)[..., None]
         alpha_base = update_alpha(alpha, y_pure, iter_mm=iter_mm,
-                                  solver=solver, share=share)
+                                  solver=solver, share=share, cs=cs)
         if not early_stop or crit_max >= tol:
             # iteration 2, the transition step: every zero-mass row moves to
             # alpha_base — full-width bookkeeping, paid once
-            idx, alpha_c, _ = compact_rows(u, alpha, alpha_base, pop)
+            idx, alpha_c, _ = compact_rows(u, alpha, alpha_base, pop,
+                                           share_max)
             alpha2 = alpha_base.clone()
             alpha2.scatter_(1, _rows(idx, n_class), alpha_c)
-            rel = crit_fn(alpha, alpha2)
+            rel = rel_per_task(alpha, alpha2, cs)
             alpha = alpha2
             l12, l3 = dirichlet_logits_cache(log_q, alpha)
             u = finish_step(u, l12, l3)
-            ss = (alpha ** 2).sum((1, 2))
+            ss = cs.sum((alpha * alpha).sum((1, 2)))
             prev_idx = idx
             pop_max = pop
             it = 2
-            crit, crit_max, pop = observe(rel, u)
+            crit, crit_max, pop, share_max = observe(rel, u)
             crits = torch.where(steps >= 1, crit, crits)
 
     while it < n_iter and (not early_stop or crit_max >= tol):
         if use_compact:
             u, alpha, l12, l3, prev_idx, diff_ss, delta_ss = step_compact(
-                u, alpha, l12, l3, prev_idx, alpha_base, pop)
+                u, alpha, l12, l3, prev_idx, alpha_base, pop, share_max)
             rel = torch.sqrt(diff_ss) / torch.sqrt(ss)
             ss = ss + delta_ss
             pop_max = max(pop_max, pop)
         else:
             alpha_old = alpha
             u, alpha, l12, l3 = step_full(u, alpha_old)
-            rel = crit_fn(alpha_old, alpha)
-        crit, crit_max, pop = observe(rel, u)
+            rel = rel_per_task(alpha_old, alpha, cs)
+        crit, crit_max, pop, share_max = observe(rel, u)
         crits = torch.where(steps >= it, crit, crits)
         it += 1
+    u = cs.gather(u)
     if return_n_iter:
         return u, crits, it, pop_max
     return u, crits
@@ -257,6 +278,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
 class EM_DIRICHLET(FewShotMethod):
     hard = False
     reduces_over_group = True
+    shards_classes = True
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         super().__init__(model, device, log_file, args)

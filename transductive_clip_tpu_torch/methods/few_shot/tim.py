@@ -33,6 +33,19 @@ loops: every step reads the per-task stable count through
 freeze and the stragglers are the whole batch's; the loss is a sum over
 tasks, so the steps themselves need no communication.
 
+Under class-axis tensor parallelism (a group with ``tp`` > 1) rank t holds
+the class weights [t K/tp, (t+1) K/tp) and their Adam moments
+([N/dp, K/tp, d]), the JAX package's communication-optimal layout
+(tim.py:298-310): the logits [N/dp, n, K/tp] are local, and the softmax
+row statistics (max, sum, the label logit) are reduced over the class
+group. The gradient is autodiff's (``tim_grad_impl`` 'pallas' and 'manual'
+become 'autodiff', as JAX turns 'pallas' off under a mesh: K3 needs whole
+rows of classes), through ``ClassShard.sum_ad``, whose backward sums over
+the class group too: each rank differentiates its part of the loss (its
+classes' entropy terms, and on t = 0 the cross entropy, which every rank
+computes whole), and their sum is the whole loss. Predictions are the
+class group's argmax, and u comes back whole.
+
 No learned parameters cross from the JAX package: the initial weights are
 the support class means of the same support in both packages.
 """
@@ -45,7 +58,11 @@ import numpy as np
 import torch
 
 from ...ops.common import TIM_EPS as _EPS, get_one_hot, to_host, top_rows
-from ...parallel.task_parallel import gather_positions, gather_tasks
+from ...parallel.task_parallel import (
+    class_shard,
+    gather_positions,
+    gather_tasks,
+)
 from ..base import FewShotMethod, narrow_phase_widths
 from .paddle import support_class_means
 
@@ -65,29 +82,37 @@ def _tim_logits(weights, samples, temp, precision: str = "highest", x2=None):
     return temp * (xw - w2 - x2[:, :, None])
 
 
-def _cross_entropy(y_one_hot, probs_s, kind: str, alpha_value):
+def _cross_entropy(y_one_hot, probs_s, kind: str, alpha_value, cs):
+    """The reference's cross entropy over one-hot labels; ``cs`` (a
+    parallel.ClassShard): the columns are this rank's classes, and the sum
+    over the classes is the class group's."""
     if kind == "Shannon":
-        return -(y_one_hot * torch.log(probs_s + _EPS)).sum(2).mean(1).sum(0)
+        return -cs.sum_ad((y_one_hot * torch.log(probs_s + _EPS)).sum(2)
+                          ).mean(1).sum(0)
     # Alpha (Tsallis-style) cross entropy
     ce = y_one_hot.pow(alpha_value) * (probs_s + _EPS).pow(1.0 - alpha_value)
-    return ((1.0 - ce.sum(2)) / (alpha_value - 1.0)).mean(1).sum(0)
+    return ((1.0 - cs.sum_ad(ce.sum(2))) / (alpha_value - 1.0)).mean(1).sum(0)
 
 
-def _log_p_label(y_s, logits_s):
+def _log_p_label(y_s, logits_s, cs):
     """(log(p_label + eps), lse): the epsilon-capped label log-probability
-    from a label gather, and the row logsumexp."""
-    lse = torch.logsumexp(logits_s, dim=-1)                      # [N, s]
-    l_lab = torch.gather(logits_s, 2, y_s[..., None])[..., 0]
-    z = l_lab - lse
+    from a label gather, and the row logsumexp, over the class group of
+    ``cs`` (the rank that holds a label's column gathers its logit)."""
+    lse = cs.logsumexp(logits_s)                                 # [N, s]
+    local = y_s - cs.lo
+    mine = (local >= 0) & (local < cs.width)
+    l_lab = torch.gather(logits_s, 2,
+                         local.clamp(0, cs.width - 1)[..., None])[..., 0]
+    z = cs.sum_ad(torch.where(mine, l_lab, 0.0)) - lse
     return z, torch.logaddexp(z, torch.full_like(z, _LOG_EPS)), lse
 
 
-def _cross_entropy_gather(y_s, logits_s, kind: str, alpha_value):
+def _cross_entropy_gather(y_s, logits_s, kind: str, alpha_value, cs):
     """Cross entropy straight from support logits via a label gather: for
     one-hot labels the reference's sum over classes reduces to the label
     column, so the [N, s, K] one-hot, softmax and power tensors never
     materialise (``tim_ce_impl: onehot`` keeps the reference's shape)."""
-    _, log_p, _ = _log_p_label(y_s, logits_s)
+    _, log_p, _ = _log_p_label(y_s, logits_s, cs)
     if kind == "Shannon":
         return (-log_p).mean(1).sum(0)
     return ((1.0 - torch.exp((1.0 - alpha_value) * log_p))
@@ -108,11 +133,11 @@ def _conditional_entropy(q_probs, kind: str, alpha_value):
             / (alpha_value - 1.0)).mean(1).sum(0)
 
 
-def _ce_grad_coef(y_s, logits_s, kind: str, alpha_value):
+def _ce_grad_coef(y_s, logits_s, kind: str, alpha_value, cs):
     """Per-sample coefficient of the CE gradient: dCE/dlogits =
     coef[:, :, None] * (p - onehot(y)) / n_support. Differentiates the
     epsilon-capped log of ``_cross_entropy_gather`` exactly."""
-    z, log_p, lse = _log_p_label(y_s, logits_s)
+    z, log_p, lse = _log_p_label(y_s, logits_s, cs)
     sigma = torch.exp(z - log_p)                 # p_label / (p_label + eps)
     if kind == "Shannon":
         return sigma, lse
@@ -151,11 +176,14 @@ def _query_side(weights, query, x2_q, temp, precision, entropies,
 
 def _make_grad_fn(grad_impl, support, query, y_s, x2_s, x2_q, temp,
                   alpha_value, loss_weights, entropies, n_class: int,
-                  precision: str, ce_impl: str):
+                  precision: str, ce_impl: str, cs=None):
     """The per-step gradient function over the given task buffers, returning
     (logits_q, grads). The impl-specific one-time preparation (support sort,
     the kernel's layout, one-hot) happens here, once per phase, outside the
-    Adam loop."""
+    Adam loop. ``cs`` (a parallel.ClassShard, all classes by default): the
+    weights are this rank's classes; under tp > 1 only autodiff runs, over
+    the class group (module docstring)."""
+    cs = cs or class_shard(None, n_class)
     if grad_impl == "pallas":
         from ...ops.cuda_tim import prepare_support, tim_support_grad
 
@@ -198,7 +226,7 @@ def _make_grad_fn(grad_impl, support, query, y_s, x2_s, x2_q, temp,
             logits_s = _tim_logits(weights, x_sorted, temp, precision,
                                    x2=x2_sorted)
             coef, lse = _ce_grad_coef(y_sorted, logits_s, entropies[0],
-                                      alpha_value)
+                                      alpha_value, cs)
             scale = loss_weights[0] / n_support
             g_plain = (scale * coef)[..., None] * torch.exp(
                 logits_s - lse[..., None])
@@ -215,21 +243,27 @@ def _make_grad_fn(grad_impl, support, query, y_s, x2_s, x2_q, temp,
 
         return grad_fn
 
-    y_one_hot = get_one_hot(y_s, n_class) if ce_impl == "onehot" else None
+    # each rank's loss is its classes' entropy terms plus, on the first
+    # class rank only, the cross entropy (whole on every rank), so that the
+    # ranks' losses add up to the whole loss (the entropies' constants
+    # aside) and every rank's graph is the same
+    y_one_hot = (get_one_hot(y_s - cs.lo, cs.width) if ce_impl == "onehot"
+                 else None)
+    ce_weight = loss_weights[0] if cs.lo == 0 else 0.0
 
     def loss_fn(weights):
         logits_s = _tim_logits(weights, support, temp, precision, x2=x2_s)
         logits_q = _tim_logits(weights, query, temp, precision, x2=x2_q)
-        q_probs = torch.softmax(logits_q, dim=2)
+        q_probs = cs.softmax(logits_q)
         if ce_impl == "onehot":
-            ce = _cross_entropy(y_one_hot, torch.softmax(logits_s, dim=2),
-                                entropies[0], alpha_value)
+            ce = _cross_entropy(y_one_hot, cs.softmax(logits_s),
+                                entropies[0], alpha_value, cs)
         else:
             ce = _cross_entropy_gather(y_s, logits_s, entropies[0],
-                                       alpha_value)
+                                       alpha_value, cs)
         q_ent = _marginal_entropy(q_probs, entropies[1], alpha_value)
         q_cond_ent = _conditional_entropy(q_probs, entropies[2], alpha_value)
-        loss = (loss_weights[0] * ce
+        loss = (ce_weight * ce
                 - (loss_weights[1] * q_ent - loss_weights[2] * q_cond_ent))
         return loss, logits_q
 
@@ -288,15 +322,20 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     they keep stepping. Frozen tasks report the logits they had at freeze
     time (see the JAX function's docstring for the argument).
 
-    ``group`` (a parallel.TaskGroup): the tasks are this rank's contiguous
-    equal share of the group's batch. The stop decisions and the
-    stragglers are the whole batch's, and the criterions come back for the
-    whole batch, [n_iter, N x world]; u stays this rank's.
+    ``group`` (a parallel.TaskGroup): the tasks are this dp slice's
+    contiguous equal share of the group's batch. The stop decisions and
+    the stragglers are the whole batch's, and the criterions come back for
+    the whole batch, [n_iter, N x dp]; u stays this slice's. Under
+    ``group.tp`` > 1 this rank holds 1/tp of the classes (module
+    docstring); u comes back whole.
     """
     loss_weights = [float(v) for v in loss_weights]
     n_task = query.shape[0]
-    lo = 0 if group is None else group.rank * n_task
-    n_all = n_task if group is None else n_task * group.world
+    lo = 0 if group is None else group.d * n_task
+    n_all = n_task if group is None else n_task * group.dp
+    cs = class_shard(group, n_class)
+    if cs.tp > 1:
+        grad_impl = "autodiff"
 
     def whole_batch(criterions):
         if group is None:
@@ -305,8 +344,12 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     # loop-invariant sample norms, hoisted out of the Adam loop
     x2_s = 0.5 * (support * support).sum(-1)
     x2_q = 0.5 * (query * query).sum(-1)
-    w0 = support_class_means(support, y_s, n_class)
+    w0 = support_class_means(support, y_s, n_class)[
+        :, cs.lo:cs.lo + cs.width].contiguous()
     state0 = _adam_init(w0, opt_dtype)
+
+    def whole_u(logits):
+        return torch.softmax(cs.gather(logits), dim=2)
 
     def make_step(support_b, query_b, y_s_b, x2_s_b, x2_q_b):
         """One Adam step over the given task buffers (the full batch, or
@@ -315,13 +358,15 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             # a rank that holds none of the stragglers steps nothing, and
             # still joins every gather (parallel/task_parallel.py)
             def step_none(weights, state):
-                empty = query_b.new_zeros((0, query_b.shape[1], n_class))
+                empty = query_b.new_zeros((0, query_b.shape[1],
+                                           weights.shape[1]))
                 return weights, state, empty, query_b.new_zeros(0)
 
             return step_none
         grad_fn = _make_grad_fn(
             grad_impl, support_b, query_b, y_s_b, x2_s_b, x2_q_b, temp,
             alpha_value, loss_weights, entropies, n_class, precision, ce_impl,
+            cs,
         )
 
         def step(weights, state):
@@ -330,7 +375,8 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
                                             opt_dtype)
             # per-task weight change [N], the reference's recorded criterion
             # (reference: tim.py weight_diff = norm(dim=-1).mean(-1))
-            crit = torch.sqrt(((weights - new_weights) ** 2).sum(-1)).mean(-1)
+            crit = torch.sqrt(((weights - new_weights) ** 2).sum(-1))
+            crit = cs.mean(crit)
             return new_weights, state, logits_q, crit
 
         return step
@@ -346,7 +392,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             crits.append(crit)
         criterions = (torch.stack(crits) if crits else
                       torch.zeros((0, n_task), device=query.device))
-        return torch.softmax(logits_q, dim=2), whole_batch(criterions)
+        return whole_u(logits_q), whole_batch(criterions)
 
     n_narrow = int(compact_tasks)
     use_tc = 0 < n_narrow < n_all
@@ -368,7 +414,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             weights, state, logits_q, crit = step(weights, state)
             # logits_q is this step's PRE-update logits — what a stop after
             # this step reports (the reference's last-loop-body semantics)
-            preds = torch.argmax(logits_q, dim=-1)
+            preds = cs.argmax(logits_q)
             same = (preds == preds_prev).all(-1)
             stable = torch.where(same, stable + 1, 0)
             if t_idx is not None:
@@ -387,7 +433,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
     stable0 = torch.zeros(n_task, dtype=torch.int64, device=query.device)
     carry = run_phase(
         step_full,
-        (w0, state0, logits_q, torch.argmax(logits_q, dim=-1), stable0,
+        (w0, state0, logits_q, cs.argmax(logits_q), stable0,
          np.zeros(n_all, np.int64)),
         busy_phase1, torch.arange(lo, lo + n_task, device=query.device),
         n_all)
@@ -421,7 +467,7 @@ def tim_infer(support, query, y_s, temp, alpha_value, loss_weights,
             t_idx=t_idx)
         logits_q = logits_q.index_copy(0, t_idx, narrow[2])
 
-    return (torch.softmax(logits_q, dim=2), whole_batch(criterions),
+    return (whole_u(logits_q), whole_batch(criterions),
             np.array([it, it_full]))
 
 
@@ -474,6 +520,7 @@ class _TIMBase(FewShotMethod):
     """Shared tim_infer plumbing for TIM-GD and alpha-TIM."""
 
     reduces_over_group = True
+    shards_classes = True
 
     def _tim_kwargs(self, task):
         args = self.args

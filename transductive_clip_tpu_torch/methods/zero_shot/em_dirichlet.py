@@ -37,6 +37,22 @@ order before the iteration's host read, the solvers' criteria are summed
 over it, and task compaction picks the batch's stragglers, each rank
 continuing those it holds. So each rank's u is its rows of the
 single-process result.
+
+Under class-axis tensor parallelism (a group with ``tp`` > 1) the tp ranks
+of a dp slice hold the same tasks, and rank t holds the cluster rows
+[t K/tp, (t+1) K/tp): alpha [N/dp, K/tp, K] and u's matching columns,
+with x whole on every rank. The JAX package shards alpha's feature axis
+and re-lays the rows only around the kernels (``_shard_map_rows``); the row
+layout gives K1 and K2 the same per-rank input with no all-to-all, at the
+same memory. The weighted log-means, every row solve and the log-density
+terms of the local clusters are local; the u update's per-query max and
+sum, the hard argmax (ties to the lowest global index), and every
+per-task sum behind a criterion are reduced over the class group. Cluster
+compaction stays cost-only: the batch's top-C selection is made on the
+gathered cluster masses, as one process makes it, and each rank solves the
+selected populated rows it owns, in a buffer as wide as the class group's
+largest populated share (padded with frozen rows); the solver is resolved
+at the whole compact width C. u comes back whole, its columns gathered.
 """
 
 from __future__ import annotations
@@ -66,6 +82,7 @@ from ...ops.dirichlet import (
 from ...parallel.task_parallel import (
     TaskShare,
     batch_rows,
+    class_shard,
     group_max,
     task_share,
 )
@@ -96,34 +113,65 @@ def _populated(u):
     return (u.sum(1) > EPS).sum(-1)
 
 
-def _finish(u, logits_12, logits_3, lambd, n_query, n_class, hard):
+def finish_assignments(logits, hard, cs):
+    """u from the cluster logits [N, n, K/tp], this rank's columns (``cs``,
+    a parallel.ClassShard): the softmax over the clusters, one-hot at its
+    argmax when ``hard``; the softmax's row max and sum and the argmax are
+    the class group's."""
+    u = cs.softmax(logits)
+    return get_one_hot(cs.argmax(u) - cs.lo, cs.width) if hard else u
+
+
+def owned_rows(idx, mass, cs, width, thresh):
+    """A compact step's rows on this rank under ``cs``: of the batch's
+    selection ``idx`` [N, C] (global rows, masses ``mass``), the rows it
+    owns that are solved (mass > ``thresh``) in selection order, then its
+    other rows in index order as padding, ``width`` distinct rows in all.
+    Returns (local rows [N, width], their masses, 0 on the padding)."""
+    n_sel = idx.shape[1]
+    rows = torch.arange(cs.width, device=idx.device)
+    local = idx - cs.lo
+    solved = (mass > thresh) & (local >= 0) & (local < cs.width)
+    hit = (local[..., None] == rows) & solved[..., None]        # [N, C, w]
+    at = torch.arange(n_sel, device=idx.device)[:, None]
+    pos = torch.where(hit, at, n_sel).amin(1)                   # [N, w]
+    key = torch.where(pos < n_sel, pos, n_sel + rows)
+    order = torch.argsort(key, dim=1, stable=True)[:, :width]
+    key = key.gather(1, order)
+    m = mass.gather(1, torch.clamp_max(key, n_sel - 1))
+    return order, torch.where(key < n_sel, m, 0.0)
+
+
+def _finish(u, logits_12, logits_3, lambd, n_query, hard, cs):
     # v (dual of the class proportions) is a pure function of the incoming
     # u, recomputed each iteration (reference: em_dirichlet.py:145-151)
     v = torch.log(u.mean(1) + EPS) + 1.0
     logits = logits_12[:, None, :] + logits_3
-    u = torch.softmax(logits + lambd * v[:, None, :] / n_query, dim=2)
-    if hard:
-        u = get_one_hot(torch.argmax(u, dim=-1), n_class)
-    return u
+    return finish_assignments(logits + lambd * v[:, None, :] / n_query,
+                              hard, cs)
 
 
 def _em_step_full(u, alpha_old, log_query, lambd, n_query, n_class,
-                  iter_mm, solver, hard, share=None):
+                  iter_mm, solver, hard, share=None, cs=None):
     """One full-width EM iteration (all K cluster rows solved); ``share``:
-    these tasks' place in a batch spread over a task group."""
+    these tasks' place in a batch spread over a task group; ``cs``: this
+    rank's share of the cluster rows (all of them by default)."""
+    cs = cs or class_shard(None, n_class)
     y_cst, nonzero = weighted_log_means(u, log_query, eps=EPS)
-    alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm, solver=solver,
-                         share=share)
+    alpha = update_alpha(alpha_old, y_cst, iter_mm=iter_mm,
+                         solver=resolve_solver_for_width(solver, n_class),
+                         share=share, cs=cs)
     # keep previous alpha rows for empty clusters (reference: :224-226)
     alpha = torch.where(nonzero, alpha, alpha_old)
     l12, l3 = dirichlet_logits_cache(log_query, alpha)
-    u = _finish(u, l12, l3, lambd, n_query, n_class, hard)
+    u = _finish(u, l12, l3, lambd, n_query, hard, cs)
     return u, alpha, l12, l3
 
 
 def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
                      n_class, iter_mm, solver, hard, n_compact, pop_max,
-                     n_fast=None, select="topk", share=None):
+                     n_fast=None, select="topk", share=None, cs=None,
+                     width=None):
     """EM iteration solving alpha only for the top-``n_compact`` clusters.
 
     ``alpha`` [N, K, K] is updated IN PLACE at the solved rows. ``pop_max``
@@ -133,11 +181,18 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
     selection's guard. The logits caches l12 [N, K] and l3 [N, n, K] are
     updated at the changed rows only. ``share``: these tasks' place in a
     batch spread over a task group (the solver's criterion is the batch's).
+    ``cs``: this rank's share of the cluster rows (all of them by default);
+    under tp > 1 the selection is made on the gathered masses and the rank
+    solves its ``width`` rows of it (``owned_rows``), which cover the
+    solved rows it owns, with no fast tier.
     """
+    cs = cs or class_shard(None, n_class)
     n = u.shape[1]
-    u_sum = u.sum(1)                                              # [N, K]
-    mass, idx = select_rows_covering(u_sum, n_compact, EPS, select,
-                                     populated_max=pop_max)
+    mass, idx = select_rows_covering(
+        cs.gather(u.sum(1)), n_compact, EPS, select, populated_max=pop_max)
+    if cs.tp > 1:
+        idx, mass = owned_rows(idx, mass, cs, width, EPS)
+        n_fast = None
     u_c = torch.gather(u, 2, idx[:, None, :].expand(-1, n, -1))   # [N, n, C]
     num_c = torch.einsum("tnc,tnd->tcd", u_c, log_query)
     y_c, nonzero_c = clamped_cluster_means(num_c, mass, eps=EPS)
@@ -152,7 +207,7 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
         # its convergence criterion, so the executed inner iteration count
         # depends only on the populated rows
         return update_alpha(a_old, y, iter_mm=iter_mm, solver=solver,
-                            row_mask=m, share=share)
+                            row_mask=m, share=share, cs=cs)
 
     if n_fast is not None and n_fast < n_compact and pop_max <= n_fast:
         a = solve(alpha_c_old[:, :n_fast], y_c[:, :n_fast],
@@ -171,19 +226,21 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
     # elementwise difference BEFORE the reduction: restored rows are exact
     # zeros, so the sum is the same for either solve tier
     delta_ss = (alpha_c ** 2 - alpha_c_old ** 2).sum((1, 2))
+    diff_ss, delta_ss = cs.sum(torch.stack((diff_ss, delta_ss)))
 
     l12, l3 = update_logits_cache_rows(l12, l3, idx, alpha_c, log_query,
                                        row_mask=row_mask)
-    u = _finish(u, l12, l3, lambd, n_query, n_class, hard)
+    u = _finish(u, l12, l3, lambd, n_query, hard, cs)
     return u, alpha, l12, l3, diff_ss, delta_ss
 
 
-def _rel_per_task(alpha_old, alpha):
+def rel_per_task(alpha_old, alpha, cs):
     """Per-task relative alpha change [N]. Its mean is the reference's
-    recorded criterion; its max gates early stopping."""
-    diff_ss = ((alpha_old - alpha) ** 2).sum((1, 2))
-    denom_ss = (alpha_old ** 2).sum((1, 2))
-    return torch.sqrt(diff_ss) / torch.sqrt(denom_ss)
+    recorded criterion; its max gates early stopping. The sums of squares
+    are the class group's (``cs``)."""
+    ss = cs.sum(torch.stack((((alpha_old - alpha) ** 2).sum((1, 2)),
+                             (alpha_old ** 2).sum((1, 2)))))
+    return torch.sqrt(ss[0]) / torch.sqrt(ss[1])
 
 
 def _rel_from_ss(diff_ss, ss_before):
@@ -210,32 +267,46 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
 
     ``early_stop_tol`` is compared in fp32, as the JAX package compares it.
 
-    ``group`` (a parallel.TaskGroup): ``query`` is this rank's contiguous
-    share of a batch of ``group.world`` equal shares. Every decision reads
-    the whole batch's values (module docstring), so u is this rank's rows
-    of the single-process result; the criterion trace, the iteration split
-    and the populated count are the whole batch's, equal on every rank.
+    ``group`` (a parallel.TaskGroup): ``query`` is this dp slice's
+    contiguous share of a batch of ``group.dp`` equal shares. Every
+    decision reads the whole batch's values (module docstring), so u is
+    this slice's rows of the single-process result; the criterion trace,
+    the iteration split and the populated count are the whole batch's,
+    equal on every rank. Under ``group.tp`` > 1 this rank holds 1/tp of the
+    cluster rows, and u comes back whole.
     """
     n_task, n_query, n_class = query.shape
     device = query.device
-    lo = 0 if group is None else group.rank * n_task
-    n_all = n_task if group is None else n_task * group.world
+    lo = 0 if group is None else group.d * n_task
+    n_all = n_task if group is None else n_task * group.dp
+    cs = class_shard(group, n_class)
+    n_rows = cs.width
     tol = np.float32(early_stop_tol)
     log_query = torch.log(query + EPS)
-    u = query
-    alpha = torch.ones((n_task, n_class, n_class), dtype=torch.float32,
+    u = cs.cols(query)
+    alpha = torch.ones((n_task, n_rows, n_class), dtype=torch.float32,
                        device=device)
 
     n_compact, engaged = compaction_geometry(n_query, n_class)
     use_compact = compact and engaged
     n_fast = min(_COMPACT_FAST, n_compact)
 
-    def compact_step(u, alpha, l12, l3, lq, pop, step_select, share):
+    def compact_step(u, alpha, l12, l3, lq, pop, share_max, step_select,
+                     share):
+        """``pop``: the batch's max populated count of u; ``share_max``:
+        the largest count of it on one class rank (``pop`` at tp 1), the
+        width the rank's compact buffer needs at most."""
+        width = max(1, min(n_compact, n_rows, int(share_max)))
         return _em_step_compact(
             u, alpha, l12, l3, lq, lambd, n_query, n_class, iter_mm, solver,
-            hard, n_compact, pop, n_fast=n_fast, select=step_select,
-            share=share,
+            hard, n_compact, int(pop), n_fast=n_fast, select=step_select,
+            share=share, cs=cs, width=width,
         )
+
+    def populated(u):
+        """u's per-task populated counts [N, tp]: a column for each class
+        rank's clusters."""
+        return cs.per_rank(_populated(u))
 
     def observe(rel, u, share):
         """The iteration's criterion (the mean relative change, over the
@@ -244,11 +315,12 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         compaction) and the next iteration's per-task populated counts
         (fast-tier gate), as needed. Under a group both are first gathered,
         in one collective, into the batch of the phase (``share``)."""
-        parts = [rel] + ([_populated(u).to(rel.dtype)] if use_compact else [])
-        both = batch_rows(torch.stack(parts, 1), share)
+        parts = [rel[:, None]] + (
+            [populated(u).to(rel.dtype)] if use_compact else [])
+        both = batch_rows(torch.cat(parts, 1), share)
         crit = both[:, 0].sum() / n_all
         want = ([both[:, 0]] if early_stop else []) + (
-            [both[:, 1]] if use_compact else [])
+            [both[:, 1:]] if use_compact else [])
         got = to_host(*want) if want else ()
         got = got if len(want) > 1 else (got,)
         return (crit, got[0] if early_stop else None,
@@ -263,13 +335,15 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         # cache (l3 = (a-1).log-x = 0, l12 = lgamma(K)). Its populated count
         # (= K, dense raw features) is excluded from the sparsity warning:
         # the first-batch guard validates it instead.
-        l12 = torch.full((n_task, n_class), math.lgamma(n_class),
+        l12 = torch.full((n_task, n_rows), math.lgamma(n_class),
                          dtype=torch.float32, device=device)
-        l3 = torch.zeros((n_task, n_query, n_class), dtype=torch.float32,
+        l3 = torch.zeros((n_task, n_query, n_rows), dtype=torch.float32,
                          device=device)
-        pop1 = int(to_host(group_max(_populated(u).max(), group)))
+        pops1 = populated(u)
+        pop1, share1_max = to_host(group_max(torch.stack(
+            (pops1.sum(1).max(), pops1.max())), group))
         u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-            u, alpha, l12, l3, log_query, pop1, "topk", share1)
+            u, alpha, l12, l3, log_query, pop1, share1_max, "topk", share1)
         # ||ones||^2 = K*K exactly
         rel = _rel_from_ss(diff_ss, ss)
         ss = ss + delta_ss
@@ -277,12 +351,12 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         alpha_old = alpha
         u, alpha, l12, l3 = _em_step_full(
             u, alpha, log_query, lambd, n_query, n_class, iter_mm, solver,
-            hard, share1,
+            hard, share1, cs,
         )
-        rel = _rel_per_task(alpha_old, alpha)
+        rel = rel_per_task(alpha_old, alpha, cs)
         if use_compact:
             # carried ||alpha||^2 for the compact criterion
-            ss = (alpha ** 2).sum((1, 2))
+            ss = cs.sum((alpha ** 2).sum((1, 2)))
     crit, rel_h, pops_h = observe(rel, u, share1)
     crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
@@ -300,9 +374,9 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         u, alpha, l12, l3, ss = state
         while it < n_iter and busy(rel_h):
             if use_compact:
-                pop = int(pops_h.max())
+                pop = int(pops_h.sum(1).max())
                 u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-                    u, alpha, l12, l3, lq, pop, select, share)
+                    u, alpha, l12, l3, lq, pop, pops_h.max(), select, share)
                 rel = _rel_from_ss(diff_ss, ss)
                 ss = ss + delta_ss
                 pop_max = max(pop_max, pop)
@@ -310,9 +384,9 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
                 alpha_old = alpha
                 u, alpha, l12, l3 = _em_step_full(
                     u, alpha_old, lq, lambd, n_query, n_class, iter_mm,
-                    solver, hard, share,
+                    solver, hard, share, cs,
                 )
-                rel = _rel_per_task(alpha_old, alpha)
+                rel = rel_per_task(alpha_old, alpha, cs)
             crit, rel_h, pops_h = observe(rel, u, share)
             crits = torch.where(steps >= it, crit, crits)
             it += 1
@@ -350,6 +424,7 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
             log_query.index_select(0, t_idx),
             lambda r: bool(r.max() >= tol), share2)
         u = u.index_copy(0, t_idx, narrow[0])
+    u = cs.gather(u)
     if return_iter_split:
         return u, crits, np.array([it, it_full]), pop_max
     return u, crits
@@ -359,6 +434,7 @@ class EM_DIRICHLET(TransductiveMethod):
     acc_mode = "clustering"
     hard = False
     reduces_over_group = True
+    shards_classes = True
 
     def __init__(self, model=None, device=None, log_file=None, args=None):
         super().__init__(model, device, log_file, args)

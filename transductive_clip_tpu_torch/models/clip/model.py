@@ -144,7 +144,7 @@ class TorchCLIP:
         Under a task group (``set_task_group``) every rank returns the whole
         batch's embeddings."""
         group = self.group
-        if group is not None and images.shape[0] % group.world == 0:
+        if group is not None and images.shape[0] % group.dp == 0:
             return gather_tasks(self._encode(shard_task_batch(images, group)),
                                 group)
         return self._encode(images)

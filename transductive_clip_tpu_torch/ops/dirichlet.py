@@ -12,7 +12,10 @@ partial sums in task order (``parallel.batch_sum``). Under a task group
 (``share``, a parallel.TaskShare) the ranks' partial sums are gathered
 before the ratio is formed, at every Newton step, with no host read — the
 psum GSPMD inserts in the JAX loop — and the ratio is the single-process
-run's to the bit. The two
+run's to the bit. Under class-axis tensor parallelism (``cs``, a
+parallel.ClassShard: this rank holds 1/tp of the cluster rows) each task's
+partial sums are first summed over the class group, so the ranks of a
+slice stop together; the rows themselves need no communication. The two
 kernel families ('pallas' and 'mm_pallas', names kept so configs work
 unchanged) run their whole loop on the card inside one launch
 (``cuda_dirichlet``) and make no transfer.
@@ -43,11 +46,15 @@ def _per_task(x):
     return x.flatten(1).sum(-1) if x.dim() > 1 else x
 
 
-def _crit(num, den, share=None):
+def _crit(num, den, share=None, cs=None):
     """num / max(den, 1e-30) in fp32, as a 0-d tensor, from per-task
     partial sums num, den [n] added up over the batch (over the ranks of
-    ``share``'s group, as one [n, 2] gather)."""
-    num, den = batch_sum(torch.stack((num, den), -1), share)
+    ``share``'s group, as one [n, 2] gather; under ``cs`` first over the
+    class group, whose ranks hold the rest of each task's rows)."""
+    x = torch.stack((num, den), -1)
+    if cs is not None:
+        x = cs.sum(x)
+    num, den = batch_sum(x, share)
     return num / torch.clamp_min(den, 1e-30)
 
 
@@ -86,7 +93,8 @@ def _mm_iteration(alpha, y_cst, alpha_floor=1e-11):
 
 
 def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
-                    check_every: int = 50, row_mask=None, share=None):
+                    check_every: int = 50, row_mask=None, share=None,
+                   cs=None):
     """The reference's MM inner loop. At update indices 50, 100, ... the
     single-step relative change ||a_{l+1} - a_l||^2 / ||a_l||^2 is tested
     against ``tol`` and the loop breaks keeping a_{l+1}; exactly ``iter_mm``
@@ -117,7 +125,7 @@ def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
         den = _per_task(live * live)
         alpha = alpha_new
         rem = min(check_every - 1, iter_mm - it - 1)
-        if _below(_crit(num, den, share), tol):
+        if _below(_crit(num, den, share, cs), tol):
             break
         for _ in range(rem):
             alpha = step(alpha, y_cst)
@@ -127,7 +135,7 @@ def mm_update_alpha(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
 
 def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
                        check_every: int = 4, newton_iters: int = 3,
-                       row_mask=None, share=None):
+                       row_mask=None, share=None, cs=None):
     """Minka's inverse-digamma fixed point a_d <- psi^{-1}(psi(sum a) + y_d)
     for the same stationarity equation as ``mm_update_alpha``, tested every
     ``check_every`` iterations. ``row_mask``: False rows are frozen at
@@ -149,7 +157,7 @@ def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
         num = _per_task((alpha - prev) ** 2)
         live = prev if row_mask is None else torch.where(
             row_mask[..., None], prev, 0.0)
-        if _below(_crit(num, _per_task(live * live), share), tol):
+        if _below(_crit(num, _per_task(live * live), share, cs), tol):
             break
     return alpha
 
@@ -164,7 +172,7 @@ NEWTON_CHECK_EVERY = 4
 
 def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
                               tol: float = 1e-11, newton_iters: int = 3,
-                              row_mask=None, share=None):
+                              row_mask=None, share=None, cs=None):
     """Newton on the row sum s of F(s) = sum_d psi^{-1}(psi(s) + y_d) - s,
     with F'(s) = psi'(s) sum_d 1/psi'(a_d) - 1 — the same stationary point
     as the fixed point, reached quadratically. A guard takes the plain
@@ -199,7 +207,7 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
             s_new = torch.where(live, s_new, s)
         num = _per_task((s_new - s) ** 2)
         s_live = s if live is None else torch.where(live, s, 0.0)
-        crit = _crit(num, _per_task(s_live * s_live), share)
+        crit = _crit(num, _per_task(s_live * s_live), share, cs)
         s = torch.where(done, s, s_new)
         done = done | (crit < tol)
         if it % check_every == 0 and it < max_iters and to_host(done):
@@ -230,7 +238,7 @@ def resolve_solver_for_width(solver: str, n_rows: int) -> str:
 
 
 def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
-                 row_mask=None, share=None):
+                 row_mask=None, share=None, cs=None):
     """Dispatch between the reference-exact MM solver (torch ops, or the
     'mm_pallas' kernel), the Minka fixed point ('minka_fp'), the
     Newton-Minka solve ('minka') and the Minka kernel ('pallas'); all solve
@@ -246,6 +254,12 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
     spread over a task group; the torch solvers' stop criteria are the
     whole batch's. The kernels stop per (task, row block) and need no
     group; a rank with no tasks launches nothing.
+
+    ``cs`` (a parallel.ClassShard): ``alpha0`` is this rank's share of each
+    task's rows, and the torch solvers' criteria are summed over the class
+    group. The caller resolves ``solver`` at the whole row count
+    (``resolve_solver_for_width``): a shard's count could pick another
+    family than one process picks.
     """
     solver = resolve_solver_for_width(solver, alpha0.shape[-2])
     if solver in ("pallas", "mm_pallas"):
@@ -261,10 +275,10 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
         return mm_row_solve(alpha0, y_cst, iter_mm=iter_mm)
     if solver == "minka":
         return minka_newton_update_alpha(alpha0, y_cst, row_mask=row_mask,
-                                         share=share)
+                                         share=share, cs=cs)
     if solver == "minka_fp":
         return minka_update_alpha(alpha0, y_cst, row_mask=row_mask,
-                                  share=share)
+                                  share=share, cs=cs)
     if solver != "mm":
         # a typo must not silently select the (reference-exact but ~100x
         # slower) MM loop
@@ -273,7 +287,7 @@ def update_alpha(alpha0, y_cst, iter_mm: int = 1000, solver: str = "mm",
             "'minka', 'minka_fp', 'pallas', 'mm', 'mm_pallas'"
         )
     return mm_update_alpha(alpha0, y_cst, iter_mm=iter_mm, row_mask=row_mask,
-                           share=share)
+                           share=share, cs=cs)
 
 
 def dirichlet_logits_cache(log_samples, alpha):

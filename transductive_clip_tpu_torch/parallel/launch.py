@@ -42,8 +42,9 @@ def _rank_main(rank, world, store_path, result_path, target, args, device,
 def spawn_ranks(target, world: int, args=(), device=None, backend=None,
                 timeout=None):
     """Run ``target(group, *args)`` (a picklable function) on ``world``
-    spawned ranks and return rank 0's result. ``device``: None puts rank r
-    on ``cuda:{r}``; a device string (``"cpu"``, or one card for ranks that
+    spawned ranks, every rank on the task axis (``target`` lays the group
+    out with ``class_layout``), and return rank 0's result. ``device``:
+    None puts rank r on ``cuda:{r}``; a device string (``"cpu"``, or one card for ranks that
     share it) puts every rank there. ``backend``: as ``make_task_group``.
     Raises ``RuntimeError`` when a rank exits with an error and
     ``TimeoutError`` after ``timeout`` seconds; the other ranks are then
