@@ -77,9 +77,11 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    operations in torch ops) at the text towers' shapes ([1000, 77, 3 x 512]
    bf16 with the causal mask, [1000, 77, 3 x 768] fp32), at
    ViT-L/14@336px's [64, 577, 3 x 1024] in fp32 and bf16, at ViT-B/16's
-   [256, 197, 3 x 768] bf16, and untimed at ragged shapes, K4a's tile
-   edges (n = 80, 128) and n = 577 bf16, without a mask, with the causal
-   one and with a general one that kills whole key tiles for some rows; K5
+   [256, 197, 3 x 768] and [512, 197, 3 x 768] bf16 (K4b bf16 also beside
+   its two-pass body of before the wgmma redesign, in turns), and untimed
+   at ragged shapes, K4a's tile edges (n = 80, 128) and n = 577 bf16,
+   without a mask, with the causal one and with a general one that kills
+   whole key tiles for some rows; K5
    against its plain version at the four RN50 identity shapes at batch 512
    in bf16 and at batch 64 in fp32 (each summed over the 12 launches of a
    batch, the fp32 shapes with the weight bytes their blocks read from L2),
@@ -115,7 +117,16 @@ Phases, each timed on a line of its own; any failure exits non-zero:
 9. ViT-L/14@336px under float32 (K4b in the 24 image layers, K4a in the
    text tower) over every 32nd image of that split (254 images, cut from
    8100), batches of 64, its features and its first and last attention
-   modules' outputs held against the 'xla' route on one batch;
+   modules' outputs held against the 'xla' route on one batch; then the
+   CLI's default extraction of a ViT, bf16 with attention 'auto' (which
+   must resolve to 'fused'): ViT-B/16 at full width over the whole split in
+   batches of 512 (K4b 12 launches a batch at [512, 197, 3 x 768], K4a 12
+   for the text), its softmax cache checked, one batch held against the
+   plain route, timed on both routes ('xla' attention) and profiled (K4b's
+   share of a batch), and zero-shot EM-Dirichlet over its cache through the
+   CLI (extraction_vitb16_bf16); the ViT-L/14@336px checkpoint at bf16 over
+   every 32nd image in batches of 64 (K4b 24 launches a batch at
+   [64, 577, 3 x 1024]; extraction_vitl336_bf16);
 10. the six other zero-shot methods (soft, hard and KL k-means,
    EM-Gaussian, EM-Gaussian-cov, inductive CLIP) through the CLI on the
    zero-shot softmax cache, two blocking batches each: accuracy (above
@@ -233,10 +244,11 @@ MAX_DELTA_U = 1e-5
 # a p, h1, h2 or output value can land on the neighbouring bf16 value
 # (2^-8 relative) and carry into what follows. Runs on an H100 80GB HBM3
 # at 700 W read at most 1.3e-6 (K4, fp32: the online softmax divides once
-# at the end), 2.7e-3 (K4, bf16: the tensor cores sum a score in another
+# at the end), 2.7e-3 (K4a, bf16: the tensor cores sum a score in another
 # order, so a p, and then an output, can land on the neighbouring bf16
-# value), 8.1e-7 (K5, fp32) and 6.9e-3 (K5, bf16: values of ~200 move by
-# one bf16 ulp, 1.0)
+# value), 5.9e-3 (K4b, bf16: e is rounded to bf16 before the division by
+# the sum, where the plain version rounds p after it), 8.1e-7 (K5, fp32)
+# and 6.9e-3 (K5, bf16: values of ~200 move by one bf16 ulp, 1.0)
 K4_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
 K5_LIMIT = {"float32": 1e-5, "bfloat16": 2e-2}
 # one batch's L2-normalized features, kernel route vs plain route: max
@@ -245,7 +257,11 @@ K5_LIMIT = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16, so the roundings drift apart (the first H100 80GB HBM3 runs read
 # 5.5e-3 for the images, 1.2e-2 for the text); ViT-L/14@336px fp32: only
 # the order of the sums differs
-FEATURE_LIMIT = {"RN50": 5e-2, "RN50 fp32": 1e-4, "ViT-L/14@336px": 1e-4}
+# ViT-B/16 and ViT-L/14@336px bf16 (set before their first run): the RN50
+# bf16 limit, which is also tests/test_torch_clip_towers.py's
+# test_bf16_towers_near_jax tolerance for a bf16 tower against JAX's
+FEATURE_LIMIT = {"RN50": 5e-2, "RN50 fp32": 1e-4, "ViT-L/14@336px": 1e-4,
+                 "ViT-B/16 bf16": 5e-2, "ViT-L/14@336px bf16": 5e-2}
 # the extraction slice: EuroSAT as the CoOp split has it (8100 test images,
 # 10 classes), batches of extract_batch_size 512; RN50 fp32 and
 # ViT-L/14@336px on every 32nd test image in batches of 64
@@ -1536,6 +1552,7 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
 
     import numpy as np
 
+    from transductive_clip_tpu_torch.ops import attention_variants as av
     from transductive_clip_tpu_torch.ops import cuda_attention as ca
     from transductive_clip_tpu_torch.utils.synthetic import (
         make_general_attention_mask,
@@ -1584,6 +1601,22 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
             f"library_ms {out['library_ms']:.4f} (sdpa rel_diff "
             f"{lib_rel:.3e}) bound_ms {out['bound_ms']:.4f} "
             f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
+        if wrapper is ca.attention_blocked and dtype == torch.bfloat16:
+            # the two-pass body of before the wgmma redesign, in turns with
+            # the kernel (two-pass, kernel, kernel, two-pass)
+            old = [time_ms(lambda: av.two_pass_blocked(qkv, heads, mask),
+                           inner=20)]
+            new = [time_ms(lambda: wrapper(qkv, heads, mask), inner=20)
+                   for _ in range(2)]
+            old.append(time_ms(lambda: av.two_pass_blocked(qkv, heads, mask),
+                               inner=20))
+            _rel_err(f"{name} two-pass body", av.two_pass_blocked(
+                qkv, heads, mask), ref, K4_LIMIT["bfloat16"])
+            out.update(two_pass_ms=statistics.median(old),
+                       ms_turns=new, two_pass_ms_turns=old)
+            log(f"{name}: two-pass body (before the wgmma redesign) ms "
+                f"{old[0]:.4f} / {old[1]:.4f}, kernel {new[0]:.4f} / "
+                f"{new[1]:.4f} in turns")
     del qkv, got, ref
     torch.cuda.empty_cache()
     return out
@@ -1659,11 +1692,16 @@ def run_kernel_checks_clip(records):
             ca.attention_blocked, 64, 577, 1024, 16, bf16, False, 14, True)
         blocked["bf16_vitb16"] = check_attention(
             ca.attention_blocked, 256, 197, 768, 12, bf16, False, 15, True)
+        # and at a ViT-B/16 extraction batch (extraction_vitb16_bf16)
+        blocked["bf16_vitb16_512"] = check_attention(
+            ca.attention_blocked, EXTRACT_BATCH, 197, 768, 12, bf16, False,
+            16, True)
         # untimed: ragged shapes, masks, tile edges; K4a takes n <= 128
         cases = ((53, fp32, False), (53, bf16, True), (197, bf16, False),
-                 (130, fp32, True), (577, bf16, False), (77, fp32, "general"),
-                 (80, bf16, "general"), (128, fp32, True),
-                 (197, fp32, "general"), (197, bf16, "general"))
+                 (130, fp32, True), (130, bf16, True), (577, bf16, False),
+                 (77, fp32, "general"), (80, bf16, "general"),
+                 (128, fp32, True), (197, fp32, "general"),
+                 (197, bf16, "general"), (577, bf16, "general"))
         for wrapper, rec in ((ca.attention_rows, rows),
                              (ca.attention_blocked, blocked)):
             for n, dtype, masked in cases:
@@ -1673,9 +1711,19 @@ def run_kernel_checks_clip(records):
                                       n, False)["max_abs_err"]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
         for rec, keys in ((rows, ("fp32_text",)),
-                          (blocked, ("bf16_vitl336", "bf16_vitb16"))):
+                          (blocked, ("bf16_vitl336", "bf16_vitb16",
+                                     "bf16_vitb16_512"))):
             rec["max_abs_err"] = max([rec["max_abs_err"]]
                                      + [rec[k]["max_abs_err"] for k in keys])
+        # the kernels line: K4b bf16 at the three ViT shapes, the kernel's
+        # ms beside the two-pass body's of before its redesign
+        blocked["bf16"] = {
+            label: {k: blocked[key][k] for k in (
+                "ms", "two_pass_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+            for label, key in (("[64, 577, 3 x 1024]", "bf16_vitl336"),
+                               ("[256, 197, 3 x 768]", "bf16_vitb16"),
+                               ("[512, 197, 3 x 768]", "bf16_vitb16_512"))}
         records["attention_rows"], records["attention_blocked"] = rows, blocked
     with Phase("k5_vs_plain"):
         # one record for a batch (bf16: 512 images, fp32: 64 and 512): the
@@ -1842,25 +1890,32 @@ def compare_routes(label, model, images, prompts, counters):
             f"{limit:.0e})")
 
 
-def time_routes(label, model, images):
+def time_routes(label, model, images, plain_attention="fused"):
     """One batch through the image tower on the kernel route and on the
-    model's own plain route (``fused_resnet`` off: cuDNN's convolutions in
-    the compute dtype), one after the other on the same weights."""
+    model's own plain route, one after the other on the same weights: the
+    plain route has ``fused_resnet`` off (cuDNN's convolutions in the
+    compute dtype) and the attention modules on ``plain_attention`` ('xla'
+    for a ViT tower: the plain torch attention in place of K4b)."""
     kernel_ms = time_ms(lambda: model.encode_image_batch(images), runs=3)
-    set_routes(model, "fused", False)
+    set_routes(model, plain_attention, False)
     try:
         plain_ms = time_ms(lambda: model.encode_image_batch(images), runs=3)
     finally:
         set_routes(model, "fused", True)
     n = len(images)
+    routes = ("fused_resnet=True", "fused_resnet=False") if model.fused_blocks \
+        else ("attention fused", f"attention {plain_attention}")
     log(f"{label} image tower, one batch of {n} ({model.compute_dtype}): "
-        f"fused_resnet=True {kernel_ms:.4f} ms ({kernel_ms / n:.4f} ms per "
-        f"image), fused_resnet=False {plain_ms:.4f} ms ({plain_ms / n:.4f} "
+        f"{routes[0]} {kernel_ms:.4f} ms ({kernel_ms / n:.4f} ms per "
+        f"image), {routes[1]} {plain_ms:.4f} ms ({plain_ms / n:.4f} "
         "ms per image)")
+    return kernel_ms, plain_ms
 
 
 def profile_encode(label, model, images):
-    """Device busy share and top kernels of one steady encode batch."""
+    """Device busy share and top kernels of one steady encode batch; returns
+    name -> (device ms, share of the busy time) of each port kernel that
+    ran in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1872,7 +1927,17 @@ def profile_encode(label, model, images):
         model.encode_image_batch(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _report_profile(label, prof, wall_us, 0, top=8)
+    events, busy = _report_profile(label, prof, wall_us, 0, top=8)
+    shares = {}
+    for e in events:
+        if "tclip::" in e.key and busy > 0:
+            name = _pass_name(e.key)
+            ms = shares.get(name, (0.0, 0.0))[0] + _dev_us(e) / 1e3
+            shares[name] = (ms, ms * 1e3 / busy)
+    for name, (ms, share) in shares.items():
+        log(f"profile {label}: {name} {ms:.3f} ms, share of the busy time "
+            f"{share:.4f}")
+    return shares
 
 
 def extract(label, model, args, dataset, items, size, batch, counters):
@@ -1989,8 +2054,9 @@ def zero_shot_visual_rn50(model, root, dataset_path, counters, records):
 
 def run_extraction(root, counters, records, launches):
     """Phases extraction_rn50 (with zero_shot_visual_rn50),
-    extraction_rn50_fp32, zero_shot_eval_rn50_cache and
-    extraction_vitl336_fp32."""
+    extraction_rn50_fp32, zero_shot_eval_rn50_cache,
+    extraction_vitl336_fp32, extraction_vitb16_bf16 and
+    extraction_vitl336_bf16."""
     import numpy as np
     import torch
 
@@ -2126,6 +2192,96 @@ def run_extraction(root, counters, records, launches):
         compare_routes(name, model, first, prompts, counters)
         del model, first
         torch.cuda.empty_cache()
+    blocked = records["attention_blocked"]
+    blocked["bf16_path_launches"], blocked["bf16_batch"] = {}, {}
+    with Phase("extraction_vitb16_bf16"):
+        # the CLI's default extraction of a ViT backbone: bf16 compute and
+        # attention 'auto', every test image in batches of extract_batch_size
+        path = vit_bf16_extraction(
+            "ViT-B/16", root, dataset_path, dataset, dataset.test,
+            EXTRACT_BATCH, prompts, counters, blocked)
+        note_host_fallback.count = 0
+        acc, sec_per_task = cli.main(
+            ["--config-root", os.path.join(HERE, "config"), "--opts",
+             "dataset", "eurosat", "method", "em_dirichlet", "shots", "0",
+             "backbone", "ViT-B/16", "root", root, "dataset_path",
+             dataset_path, "number_tasks", "200", "batch_size", "100",
+             "save_results", "False", "log_path", os.path.join(root, "logs")])
+        log(f"zero-shot em_dirichlet on the ViT-B/16 bf16 cache (random "
+            f"weights, {path}): accuracy {acc:.6f} ms_per_task "
+            f"{1e3 * sec_per_task:.4f}")
+        if not 0.0 <= acc <= 1.0:
+            fail(f"zero-shot accuracy {acc} on the ViT-B/16 cache outside "
+                 "[0, 1]")
+        if note_host_fallback.count:
+            fail(f"zero-shot on the ViT-B/16 cache: "
+                 f"{note_host_fallback.count} batches solved their matching "
+                 "on the host after the device auction ran out of rounds")
+    with Phase("extraction_vitl336_bf16"):
+        # the fp32 phase's checkpoint at the default bf16: K4b at exactly
+        # the [64, 577, 3 x 1024] that k4_vs_plain times
+        vit_bf16_extraction(
+            "ViT-L/14@336px", os.path.join(root, "vitl336_bf16"),
+            dataset_path, dataset, dataset.test[::VIT_EVERY], VIT_BATCH,
+            prompts, counters, blocked)
+
+
+def vit_bf16_extraction(name, root, dataset_path, dataset, items, batch,
+                        prompts, counters, blocked):
+    """One bf16 ViT extraction through the port's entry points (``load``
+    with its defaults: bf16 compute, attention 'auto', which must resolve
+    to 'fused'), K4b launched once a layer and batch and K4a once a text
+    layer; the softmax cache checked, one batch held against the plain
+    route, timed on both routes and profiled. Returns the cache path."""
+    import numpy as np
+    import torch
+
+    from transductive_clip_tpu_torch.core.config import CfgNode
+    from transductive_clip_tpu_torch.features.cache import load_feature_cache
+    from transductive_clip_tpu_torch.models.clip import CLIP_CONFIGS, load
+
+    cfg = CLIP_CONFIGS[name]
+    label = f"{name} bf16"
+    model, _ = load(name, allow_random=True, seed=SEED)
+    model.fused_blocks = []
+    v = cfg.vision
+    n = (v.image_size // v.patch_size) ** 2 + 1
+    log(f"{label}: {model.compute_dtype} attention {model.attention_impl} "
+        f"(n = {n}, width {v.width}, {v.layers} layers, {v.heads} heads; "
+        f"text width {cfg.text.width})")
+    if model.compute_dtype != torch.bfloat16 or model.attention_impl != "fused":
+        fail(f"{label}: load's defaults gave {model.compute_dtype} and "
+             f"attention {model.attention_impl}, not bfloat16 and fused")
+    args = CfgNode(dict(dataset="eurosat", backbone=name, root=root,
+                        dataset_path=dataset_path))
+    path, got, n_batches, first = extract(
+        label, model, args, dataset, items, v.image_size, batch, counters)
+    if (got["attention_blocked"] != v.layers * n_batches
+            or got["attention_rows"] != cfg.text.layers):
+        fail(f"{label} extraction launched {got}, not K4b {v.layers} a "
+             f"batch ({v.layers * n_batches}) and K4a {cfg.text.layers}")
+    blocked["bf16_path_launches"][name] = got["attention_blocked"]
+    feats, _ = load_feature_cache(path)
+    if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
+            np.isfinite(feats).all()
+            and np.allclose(feats.sum(-1), 1.0, atol=1e-4)):
+        fail(f"{label} softmax cache: shape {feats.shape} or not simplex "
+             "rows")
+    compare_routes(label, model, first, prompts, counters)
+    kernel_ms, plain_ms = time_routes(label, model, first,
+                                      plain_attention="xla")
+    shares = profile_encode(f"{label} encode, one batch of {len(first)}",
+                            model, first)
+    k4b_ms, k4b_share = shares.get("attention_blocked_bf16", (0.0, 0.0))
+    if k4b_ms <= 0:
+        fail(f"{label}: the profiled batch shows no K4b time ({shares})")
+    blocked["bf16_batch"][name] = {
+        "batch": len(first), "ms": kernel_ms, "xla_attention_ms": plain_ms,
+        "k4b_device_ms": k4b_ms, "k4b_share": k4b_share}
+    del model, first
+    torch.cuda.empty_cache()
+    return path
+
 
 def _tp_zero_shot_batch(root, solver, method="em_dirichlet"):
     """(args, the whole task dict) of one zero-shot batch of ``method`` at
@@ -2602,6 +2758,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     try:
+        from transductive_clip_tpu_torch.ops import attention_variants as av
         from transductive_clip_tpu_torch.ops import cuda_attention as ca
         from transductive_clip_tpu_torch.ops import cuda_auction as cau
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
@@ -2629,7 +2786,9 @@ def main():
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
-        kernel_build.build()
+        # the kernels, and the two-pass K4b bf16 that k4_vs_plain times
+        # beside its redesign
+        kernel_build.build((*kernel_build.SOURCES, av.TWO_PASS))
         log(f"kernel build seconds {time.perf_counter() - t0:.3f}")
         for source, text in kernel_build.build_log.items():
             for line in text.splitlines():
@@ -2797,6 +2956,8 @@ def main():
             **{key: rec[key] for key in ("sfu_bound_ms", "ms_full_width",
                                          "few_shot_launches",
                                          "vit_path_launches",
+                                         "bf16", "bf16_path_launches",
+                                         "bf16_batch",
                                          "fp32_path_launches",
                                          "visual_path_launches",
                                          "methods_launches",

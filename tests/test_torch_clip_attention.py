@@ -2,11 +2,14 @@
 JAX Pallas kernels in interpret mode (as tests/test_pallas_attention.py
 runs them) on the same numpy inputs, the dispatch at every OpenAI tower's
 shape, the attention module's two routes, and the kernels' tiled order of
-operations (a torch twin of it) against the plain version.
+operations (a torch twin of it) against the plain version and, in bf16,
+against the TPU kernel.
 
 Tolerances are tests/test_pallas_attention.py's: 1e-5 in fp32 (only the
 order of the fp32 sums differs) and 2e-2 in bf16 (a p or output value can
 land on the neighbouring bf16 value)."""
+
+import re
 
 import numpy as np
 import pytest
@@ -119,7 +122,11 @@ def test_routes_at_the_slice_shapes():
         # gone) and leaves room for two blocks an SM or more
         assert ca.attention_route(777, 1024, 16, dtype) == "blocked"
         assert 2 * (ca.blocked_smem_bytes(dtype) + 1024) <= 228 * 1024
-    assert ca.blocked_smem_bytes(torch.bfloat16) == 2 * (128 + 4 * 64) * 72
+    # bf16: two q buffers of two 64-row warpgroups and four stages of a k
+    # and a v tile in unpadded 128-byte rows (the wgmma swizzle), 1024
+    # bytes to align them, and twelve 8-byte barriers
+    assert ca.blocked_smem_bytes(torch.bfloat16) == (
+        1024 + 128 * (256 + 8 * 64) + 8 * 12)
     assert ca.blocked_smem_bytes(torch.float32) == 4 * (256 * 68 + 128 * 72)
 
 
@@ -172,12 +179,14 @@ def test_tiled_twin_matches_plain_fp32(rng, n, mask):
 @pytest.mark.parametrize("mask", ["plain", "causal", "general"])
 @pytest.mark.parametrize("n", [33, 53, 77, 130, 197, 577])
 def test_tiled_twin_matches_plain_bf16(rng, n, mask):
-    """The bf16 kernels' two passes over the key tiles against the plain
-    version, within one bf16 ulp of the output's magnitude. Not bit-equal:
-    the tiled sum of exp runs in another order than the plain row sum, so
-    it can differ in its last fp32 bit, and a p = e / sum that lies within
-    that of a bf16 rounding boundary lands on the neighbouring bf16 value
-    (the order normalise, round, multiply is the same in both)."""
+    """K4b bf16's one pass over the key tiles (e = exp(s - m) rounded to
+    bf16 into o += e . v, the sum of the unrounded e, one division at the
+    end) against the plain version (p = e / sum rounded to bf16, then
+    p . v), within one bf16 ulp of the output's magnitude: rounding e
+    before the division and p after it differ by under half a bf16 ulp of
+    each term, so a summed output moves by less than an ulp of the largest
+    one, and an output near a bf16 rounding boundary to the neighbouring
+    value."""
     _, qkv = _qkv(rng, 2, n, 128, "bf16")
     mt = _mask(rng, mask, n)
     want = ca.fused_attention_reference(qkv, 2, mt).float()
@@ -185,6 +194,22 @@ def test_tiled_twin_matches_plain_bf16(rng, n, mask):
     assert torch.isfinite(got).all()
     ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
     assert (got - want).abs().max() <= ulp
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "causal"])
+@pytest.mark.parametrize("n", [53, 130, 197])
+def test_tiled_twin_matches_jax_blocked_bf16(rng, n, masked):
+    """K4b bf16's order of operations (the twin) against the TPU kernel it
+    replaces, ``_fused_attention_blocked`` in interpret mode, in bf16 over
+    one, three and four key tiles (197 ends in a tile of 5 keys), at the
+    bf16 tolerance of this file."""
+    width, heads = 64, 4
+    qj, qt = _qkv(rng, 2, n, width, "bf16")
+    mj, mt = _causal(n) if masked else (None, None)
+    want = _fused_attention_blocked(qj, heads, mj, 16, interpret=True)
+    got = ca.fused_attention_tiled_reference(qt, heads, mt)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, n, width)
+    _close(got, want, DTYPES["bf16"][2])
 
 
 def test_tiled_twin_guards_a_leading_masked_tile():
@@ -209,6 +234,32 @@ def test_rows_kernel_refuses_long_sequences():
         ca.attention_rows(qkv, 2)
     with pytest.raises(ValueError, match="CUDA"):
         ca.attention_blocked(qkv, 2)
+
+
+def test_python_constants_equal_the_source():
+    """The tile, warpgroup, ring and slack constants of
+    ops/cuda_attention.py, and its K4b bf16 shared-memory formula, against
+    csrc/attention.cu."""
+    from transductive_clip_tpu_torch.ops import kernel_build
+
+    text = (kernel_build.CSRC / ca.SOURCE).read_text()
+
+    def const(name, kind="int"):
+        return float(re.search(rf"constexpr {kind} {name} = ([0-9.]+)f?;",
+                               text).group(1))
+
+    assert const("kHeadDim") == ca.HEAD_DIM
+    assert const("kWarpRows") == ca.WARP_ROWS
+    assert const("kKeys") == ca.KEYS
+    assert const("kBlockRows") == ca.BLOCK_ROWS
+    assert const("kWgRows") == ca.WG_ROWS
+    assert const("kWarpgroups") == ca.WARPGROUPS
+    assert const("kStages") == ca.STAGES
+    assert const("kSlack", "float") == ca.SLACK
+    assert ca.WARPGROUPS * ca.WG_ROWS == ca.BLOCK_ROWS
+    assert ("1024 + sizeof(bf16) * (2 * kRowsB + 2 * kStages * kKeys) * "
+            "kHeadDim\n            + sizeof(uint64_t) * (4 + 2 * kStages)"
+            ) in text
 
 
 def test_variant_substitutions_still_apply():

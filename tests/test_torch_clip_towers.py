@@ -213,6 +213,42 @@ def test_bf16_towers_near_jax(weights, name):
     assert np.abs(got - ref).max() <= 5e-2 * scale
 
 
+def test_bf16_vit_tower_with_k4b_order_near_jax(weights, monkeypatch):
+    """The bf16 ViT image tower with its attention in K4b bf16's order of
+    operations (``fused_attention_tiled_reference``: one pass, e rounded to
+    bf16 before the division) against the JAX bf16 tower and the fp32
+    output, at test_bf16_towers_near_jax's 5e-2 of the fp32 output's
+    magnitude."""
+    from transductive_clip_tpu_torch.models.clip import layers
+    from transductive_clip_tpu_torch.ops import cuda_attention as ca
+
+    cfg = TINY_VIT
+    _, params = weights["vit"]
+    s = cfg.vision.image_size
+    imgs = np.random.default_rng(6).integers(0, 256, (2, s, s, 3),
+                                             dtype=np.uint8)
+    ref = np.asarray(JaxCLIP(cfg, params, compute_dtype=jnp.float32,
+                             attention_impl="xla").encode_image_batch(imgs))
+    jax_bf16 = np.asarray(JaxCLIP(cfg, params, attention_impl="xla")
+                          .encode_image_batch(imgs))
+    calls = []
+
+    def twin(qkv, heads, mask=None):
+        calls.append(qkv.shape)
+        return ca.fused_attention_tiled_reference(qkv, heads, mask)
+
+    monkeypatch.setattr(layers, "fused_attention", twin)
+    port = _model(state_dict_from_flax(params, cfg), cfg,
+                  compute_dtype=torch.bfloat16, attention_impl="fused")
+    got = port.encode_image_batch(imgs).numpy()
+    assert len(calls) == cfg.vision.layers
+    assert all(shape[0] == 2 for shape in calls)
+    scale = np.abs(ref).max()
+    assert np.isfinite(got).all()
+    assert np.abs(got - jax_bf16).max() <= 5e-2 * scale
+    assert np.abs(got - ref).max() <= 5e-2 * scale
+
+
 def test_fold_matches_jax_fold(weights):
     """fold_resnet_params on OpenAI keys gives the JAX fold's numbers."""
     from transductive_clip_tpu.models.clip.resnet import (

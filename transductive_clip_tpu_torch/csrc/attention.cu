@@ -19,48 +19,52 @@
 //   5. p rounded to the qkv dtype;
 //   6. o = p . v_h accumulated in fp32;
 //   7. o rounded to the qkv dtype, written to out[b, n, h*64 : h*64 + 64].
+// except K4b in bf16, which walks the keys once with an online softmax and
+// rounds e, not p: steps 2 and 3 are one FFMA with a mask (x = s scale +
+// mask) and none without (x = s); per key tile, the max in use m moves to
+// the running max when some row of the warp has passed it by more than
+// kSlack (8) in log2 units, and the sum and o are then rescaled; e =
+// 2^(x c - m c) by one FFMA and ex2.approx (c = scale log2(e) on raw
+// scores, log2(e) on masked ones; e < 2^8), the fp32 sum takes the
+// unrounded e, o += e . v_h (fp32) takes e rounded to bf16; at the end
+// one division a row (the IEEE reciprocal of its sum) and o rounded to
+// bf16. Against the TPU's order only the place of the bf16 rounding (of e
+// before the division, not of p after it), the max subtracted and the
+// exp's last bits differ: within one bf16 ulp of the output.
 // Rows whose scores are all -inf are not special-cased (they come out NaN,
 // as in the plain version); every other row is guarded against
 // exp(-inf - -inf) while its running max is still -inf.
 //
 // Bound. 4 b heads n^2 64 operations (two products) against the bytes of
 // qkv and out. The text tower's [1000, 77, 3 x 512] bf16 is bound by bytes
-// (0.32 GB: 0.094 ms at 3.35 TB/s, against 0.012 ms of bf16 tensor cores);
-// ViT-L/14@336px fp32 [64, 577, 3 x 1024] by operations (8.7e10 at the
-// 67 TFLOP/s of fp32 FFMA: 1.3 ms; TF32 stays off). So the bf16 kernels
-// must keep many loads in flight and waste no shared memory, and the fp32
-// kernels must keep the FFMA pipe fed: few shared-memory loads per FMA.
+// (0.32 GB: 0.094 ms at 3.35 TB/s, against 0.012 ms of bf16 tensor cores),
+// as are the ViT towers' bf16 shapes ([64, 577, 3 x 1024]: 0.30 GB, 0.090
+// ms, against 0.088 ms of tensor cores); ViT-L/14@336px fp32 by operations
+// (8.7e10 at the 67 TFLOP/s of fp32 FFMA: 1.3 ms; TF32 stays off). K4b in
+// bf16 also does an ex2 a score on the special-function unit (16 a clock
+// an SM: 0.10 ms at [64, 577]), as long as its products. So the bf16
+// kernels must keep many loads in flight and the tensor cores and the
+// special-function unit busy together, and the fp32 kernels must keep the
+// FFMA pipe fed: few shared-memory loads per FMA.
 //
-// Design. A warp owns 16 q rows of one (sequence, head); nothing of a score
-// row ever lies in shared or device memory. Keys and values come in tiles of
-// 64 rows, staged in the qkv dtype with 16-byte cp.async copies (a head's
-// row is 128 or 256 contiguous bytes) at a padded pitch (72 bf16, 68 fp32)
-// that keeps ldmatrix and float4 reads free of bank conflicts.
+// Design, K4a and the fp32 K4b. A warp owns 16 q rows of one (sequence,
+// head); nothing of a score row ever lies in shared or device memory. Keys
+// and values come in tiles of 64 rows, staged in the qkv dtype with
+// 16-byte cp.async copies (a head's row is 128 or 256 contiguous bytes) at
+// a padded pitch (72 bf16, 68 fp32) that keeps ldmatrix and float4 reads
+// free of bank conflicts.
 //
-//   bf16: both products on tensor cores, mma.sync m16n8k16 (bf16 x bf16 ->
-//     fp32), fragments by ldmatrix (ldmatrix.trans for v). mma.sync and not
-//     wgmma: wgmma's 64-row tile turns n = 77 into 128 rows where 16-row
-//     tiles make 80, the products are shallow (depth 64), and the kernels
-//     are bound by bytes and by exp long before the tensor-core rate. The
-//     fp32 scores stay in the accumulator registers; scale, mask, max, exp,
-//     sum and the division happen there (a row lives in one quad: two
-//     shuffles), and p, normalised and then rounded to bf16 as on the TPU,
-//     is packed straight into the A fragments of p . v (the accumulators of
-//     two m16n8 tiles have the A layout of one m16k16).
-//       K4a (n <= 128): one block of ceil(n / 16) warps per (sequence,
-//         head) holds q, k, v of the head (35 KB at n = 77) and a warp's
-//         whole [16, n] score row block in registers.
-//       K4b: one block of 8 warps per (sequence, head, 128 q rows) walks
-//         the key tiles twice through a double-buffered ring: pass 1 keeps
-//         a running max and sum of exp, pass 2 recomputes q . k^T, forms
-//         p = exp(s - m) / sum with the final m and sum, rounds it and
-//         multiplies by v. An online softmax would round the unnormalised
-//         exp; the second q . k^T keeps the TPU's order of roundings and
-//         costs tensor-core time the kernel has to spare. The last tile of
-//         a sequence computes only its live 16-key groups (a ViT sequence
-//         is a square plus one: one live key of 64). What bounds it is the
-//         two IEEE expf a score, not the products.
-//     A row's many divisions by its one sum are the product with the IEEE
+//   K4a, bf16: both products on tensor cores, mma.sync m16n8k16 (bf16 x
+//     bf16 -> fp32), fragments by ldmatrix (ldmatrix.trans for v); one
+//     block of ceil(n / 16) warps per (sequence, head) holds q, k, v of the
+//     head (35 KB at n = 77) and a warp's whole [16, n] score row block in
+//     registers (mma.sync and not wgmma: wgmma's 64-row tile turns n = 77
+//     into 128 rows where 16-row tiles make 80). Scale, mask, max, exp, sum
+//     and the division happen in the accumulator registers (a row lives in
+//     one quad: two shuffles), and p, normalised and then rounded to bf16
+//     as on the TPU, is packed straight into the A fragments of p . v (the
+//     accumulators of two m16n8 tiles have the A layout of one m16k16). A
+//     row's many divisions by its one sum are the product with the IEEE
 //     reciprocal corrected by one Newton step on the remainder (div_by).
 //   fp32: FFMA with a register tile of 4 rows x 8 columns a thread (lane =
 //     4 row slots x 8 column slots; rows slot + 4i, key columns slot + 8j,
@@ -81,13 +85,36 @@
 //     computes a tile only up to the last 8-key group that the mask leaves
 //     finite for any of them (under the text towers' causal mask that is
 //     40% of the groups less); the mask may be any [n, n] values.
-// Warps whose 16 rows lie past n only help to load. The TPU kernel keeps a
-// whole [n, 3w] image in VMEM and loops over the heads; here a head is the
-// unit of work, and no shared-memory size depends on n in K4b.
+//   Warps whose 16 rows lie past n only help to load.
+//
+// Design, K4b in bf16 (Hopper's warpgroup products and TMA). A persistent
+// grid of two blocks an SM walks work items of (sequence, head, 128 q
+// rows); a block has two consumer warpgroups of 64 q rows and one producer
+// warp. The producer's one thread copies q and the k / v tiles of 64 keys
+// by TMA into shared memory under the 128-byte swizzle, through a ring of
+// kStages stages with a full and an empty barrier a stage, and runs ahead
+// of the consumers into the next item. A warpgroup reads each k and v tile
+// once from shared memory for its 64 rows: s = q k^T by wgmma m64n64k16
+// (q and k K-major in shared memory) into registers, the softmax there,
+// and o += e v by wgmma with e from registers (the accumulators of s have
+// the A-fragment layout) and v MN-major (the transpose bit). The last tile
+// of a sequence computes only its live 16-key groups with a narrow wgmma
+// (n16 / n32 / n48; a ViT sequence is a square plus one: 1 live key of 64
+// at n = 577, 5 at n = 197), and the rows past n only fill the 64-row
+// product. The warpgroups of a block run apart, each waiting only for its
+// tiles; ptxas serialises wgmma when a branch it takes for divergent lies
+// between a product's issue and its wait, so none does, and the
+// warpgroup's index is read from lane 0.
+// The TPU kernel keeps a whole [n, 3w] image in VMEM and loops over the
+// heads; here a head is the unit of work, and no shared-memory size
+// depends on n in K4b.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-// -Xcompiler -fPIC, without --use_fast_math (IEEE expf and division).
+// -Xcompiler -fPIC, without --use_fast_math (IEEE expf and division). The
+// tensor maps come from cuTensorMapEncodeTiled, looked up through the
+// runtime at first use, so the library is not linked against libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -374,151 +401,313 @@ attention_rows_bf16(const bf16* __restrict__ qkv,
              warp * kWarpRows, n, lane);
 }
 
-// a warp's state over K4b's two passes, bf16
-struct PassState {
-  float m0, m1, l0, l1;     // running (then final) max and sum of two rows
-  float o[8][4];
+// ------------------------------------------------------ K4b bf16 (wgmma)
+
+constexpr int kWgRows = 64;                     // q rows of a warpgroup
+constexpr int kWarpgroups = 2;                  // consumer warpgroups a block
+constexpr int kStages = 4;                      // k / v tiles of the ring
+constexpr int kRowsB = kWarpgroups * kWgRows;   // q rows of a block
+constexpr int kConsumers = 128 * kWarpgroups;   // consumer threads
+constexpr int kThreadsB = kConsumers + 32;      // and one producer warp
+constexpr int kBlocksPerSm = 2;                 // resident blocks an SM
+constexpr int kTileBytes = kKeys * kHeadDim * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kSlack = 8.f;   // log2 units a row may outrun its max in use
+
+// 2^x on the special-function unit (ex2.approx: 2 ulp, ex2(-inf) = 0)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a thread's share of its warpgroup's 64 q rows: the [64, 64] output
+// accumulator in wgmma's layout (rows r and r + 8, r = 16 warp + lane / 4),
+// the two rows' max in use (of the raw scores, or of s scale + mask) and
+// its share of their running sums of exp (the quad's four shares are added
+// at the end)
+struct WgState {
+  float o[32];
+  float m0, m1, l0, l1;
 };
 
-// one stage of K4b, bf16, over the first 16 NK16 keys of a tile (the last
-// tile of a sequence is mostly padding: ViT sequences are a square plus
-// one). kb: the k tile, then the v tile; second: pass 2
-template <int NK16, bool EDGE>
-__device__ __forceinline__ void blocked_stage(PassState& st, const bf16* qw,
-                                              const bf16* kb, bool second,
-                                              float scale, const float* mr0,
-                                              const float* mr1, int n, int j0,
-                                              int lane) {
+// one key tile for a warpgroup, over the tile's first 16 NK16 keys (kt,
+// vt: its k and v in shared memory; dq: q's descriptor): s = q k^T by
+// wgmma m64n(16 NK16)k16 (four steps of 16 along d: 32 bytes, 2 descriptor
+// units), the online softmax in the accumulator registers, o += e v by
+// wgmma with e from registers (steps of 16 keys: 2048 bytes, 128 units).
+// The max in use moves only when a row's scores pass it by more than
+// kSlack in log2 units (so e stays below 2^kSlack), and o and the sums are
+// rescaled only then, decided by a vote over the warp. e = 2^(x c - max c)
+// by one FFMA and one ex2 a score (x = s, or s scale + mask; c takes x to
+// log2 units); the sums take e unrounded, p . v takes e rounded to bf16
+// (the A fragments of 16 keys are the accumulators of two 8-key column
+// groups). EDGE: keys from n on are -inf; MASK: the [n, n] mask, r0: the
+// thread's first q row
+template <int NK16, bool EDGE, bool MASK>
+__device__ __forceinline__ void blocked_tile(WgState& st, uint64_t dq,
+                                             const bf16* kt, const bf16* vt,
+                                             float scale, float c,
+                                             const float* __restrict__ mask,
+                                             int r0, int n, int j0) {
   constexpr int NT8 = 2 * NK16;
-  float sc[NT8][4];
-  {
-    // q's fragments anew each stage: 16 registers less to carry
-    uint32_t qf[4][4];
-    load_q_frags(qf, qw, lane);
-    qk_tile<NT8>(sc, qf, kb, lane);
-  }
-  // only the last 16 of an edge tile's keys can lie past n
-  scale_mask_tile<NT8, EDGE ? NT8 - 2 : NT8>(sc, scale, mr0, mr1, n,
-                                             j0 + 2 * (lane & 3));
-  if (!second) {
-    // pass 1: this lane's share of the rows' running max and sum
-    float t0 = -INFINITY, t1 = -INFINITY;
+  float s[4 * NT8];
+  const uint64_t dk = wgmma_desc_sw128(kt, 1);
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT8; ++j) {
-      t0 = fmaxf(t0, fmaxf(sc[j][0], sc[j][1]));
-      t1 = fmaxf(t1, fmaxf(sc[j][2], sc[j][3]));
-    }
-    const float n0 = fmaxf(st.m0, t0), n1 = fmaxf(st.m1, t1);
-    const float u0 = guard(n0), u1 = guard(n1);
-    float a0 = 0.f, a1 = 0.f;
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_ss<16 * NK16>(s, dq + 2 * ks, dk + 2 * ks, ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(s);
+  if (EDGE || MASK) {
+    const int t = threadIdx.x & 3;
+    const float* mr0 = MASK ? mask_row(mask, n, r0) : nullptr;
+    const float* mr1 = MASK ? mask_row(mask, n, r0 + 8) : nullptr;
 #pragma unroll
-    for (int j = 0; j < NT8; ++j) {
-      a0 += expf(sc[j][0] - u0) + expf(sc[j][1] - u0);
-      a1 += expf(sc[j][2] - u1) + expf(sc[j][3] - u1);
-    }
-    st.l0 = st.l0 * expf(st.m0 - u0) + a0;
-    st.l1 = st.l1 * expf(st.m1 - u1) + a1;
-    st.m0 = n0;
-    st.m1 = n1;
-    return;
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = j0 + 8 * j + 2 * t + (i & 1);
+        float& x = s[4 * j + i];
+        if (EDGE && col >= n)
+          x = -INFINITY;
+        else if (MASK)
+          x = fmaf(x, scale, (i < 2 ? mr0 : mr1)[col]);
+      }
   }
-  // pass 2: p normalised, then rounded, then multiplied
+  // the rows' tile max (a row lives in one quad: two shuffles)
+  float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NT8; ++j) {
-    sc[j][0] = expf(sc[j][0] - st.m0);
-    sc[j][1] = expf(sc[j][1] - st.m0);
-    sc[j][2] = expf(sc[j][2] - st.m1);
-    sc[j][3] = expf(sc[j][3] - st.m1);
+    t0 = fmaxf(t0, fmaxf(s[4 * j], s[4 * j + 1]));
+    t1 = fmaxf(t1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
+  }
+  // a max of -inf (every score so far masked) takes any finite one: +inf
+  if (__any_sync(0xffffffffu, fmaf(t0, c, -(st.m0 * c)) > kSlack
+                              || fmaf(t1, c, -(st.m1 * c)) > kSlack)) {
+    const float n0 = fmaxf(st.m0, t0), n1 = fmaxf(st.m1, t1);
+    // 0 while the old max is -inf
+    const float a0 = exp2_sfu(fmaf(st.m0, c, -(guard(n0) * c)));
+    const float a1 = exp2_sfu(fmaf(st.m1, c, -(guard(n1) * c)));
+    st.m0 = n0;
+    st.m1 = n1;
+    st.l0 *= a0;
+    st.l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      st.o[4 * j] *= a0;
+      st.o[4 * j + 1] *= a0;
+      st.o[4 * j + 2] *= a1;
+      st.o[4 * j + 3] *= a1;
+    }
+  }
+  const float b0 = guard(st.m0) * c, b1 = guard(st.m1) * c;
   uint32_t pa[NK16][4];
-  pack_p<NK16>(pa, sc, st.l0, st.l1);
-  pv_tile<NK16>(st.o, pa, kb + kKeys * kPitchB, lane);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT8; ++j) {
+    const float e0 = exp2_sfu(fmaf(s[4 * j], c, -b0));
+    const float e1 = exp2_sfu(fmaf(s[4 * j + 1], c, -b0));
+    const float e2 = exp2_sfu(fmaf(s[4 * j + 2], c, -b1));
+    const float e3 = exp2_sfu(fmaf(s[4 * j + 3], c, -b1));
+    sum0 += e0 + e1;
+    sum1 += e2 + e3;
+    pa[j >> 1][2 * (j & 1)] = pack_bf16(e0, e1);
+    pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(e2, e3);
+  }
+  st.l0 += sum0;
+  st.l1 += sum1;
+  const uint64_t dv = wgmma_desc_sw128(vt, 64);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK16; ++kk)
+    wgmma_rs_n64_mn(st.o, pa[kk], dv + 128 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(st.o);
 }
 
-// K4b, bf16: grid (b * heads, ceil(n / 128)), 256 threads; shared memory
-// q [128][72] and two stages of a k and a v tile [64][72] bf16
-__global__ void __launch_bounds__(256, 2)
-attention_blocked_bf16(const bf16* __restrict__ qkv,
-                       const float* __restrict__ mask, bf16* __restrict__ out,
-                       int n, int heads, float scale) {
-  extern __shared__ uint4 smem4[];
-  constexpr int kTile = kKeys * kPitchB;
-  bf16* q = reinterpret_cast<bf16*>(smem4);
-  bf16* ring = q + kBlockRows * kPitchB;
-  const int width = heads * kHeadDim;
-  const int seq = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int row0 = blockIdx.y * kBlockRows;
-  const size_t seq_off = (size_t)seq * n * 3 * width;
-  const int tiles = (n + kKeys - 1) / kKeys, stages = 2 * tiles;
-  // stage s: the k tile s % tiles, and from the second pass on its v tile
-  auto prefetch = [&](int s) {
-    bf16* kb = ring + (s & 1) * 2 * kTile;
-    const int j0 = (s < tiles ? s : s - tiles) * kKeys;
-    load_rows(kb, qkv, seq_off, n, width, h, 1, j0, kKeys);
-    if (s >= tiles)
-      load_rows(kb + kTile, qkv, seq_off, n, width, h, 2, j0, kKeys);
-    cp_async_commit();
-  };
-  load_rows(q, qkv, seq_off, n, width, h, 0, row0, kBlockRows);
-  prefetch(0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int wrow = row0 + warp * kWarpRows;
-  const bool live = wrow < n;
-  bf16* qw = q + warp * kWarpRows * kPitchB;
-  PassState st;
-  st.m0 = st.m1 = -INFINITY;
-  st.l0 = st.l1 = 0.f;
+// step 7 for a warp: its 16 rows of o times the IEEE reciprocal of their
+// sums (a division each would cost a division a value), rounded to bf16,
+// through its own 16 q rows of shared memory (stage, swizzled as the
+// tiles; the last product that read them has completed), then 16 bytes a
+// lane to the rows of out before n
+__device__ __forceinline__ void store_rows_wg(bf16* stage, WgState& st,
+                                              bf16* __restrict__ out_head,
+                                              int width, int row0, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    st.o[j][0] = st.o[j][1] = st.o[j][2] = st.o[j][3] = 0.f;
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();      // stage s is here; everyone is done with s - 1
-    if (s + 1 < stages) prefetch(s + 1);
-    if (!live) continue;
-    if (s == tiles) {
-      // the rows' final max and sum from the quad's four shares
-      float n0 = st.m0, n1 = st.m1;
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, off));
-        n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, off));
-      }
-      n0 = guard(n0);
-      n1 = guard(n1);
-      st.l0 *= expf(st.m0 - n0);
-      st.l1 *= expf(st.m1 - n1);
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, off);
-        st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, off);
-      }
-      st.m0 = n0;
-      st.m1 = n1;
-    }
-    const bf16* kb = ring + (s & 1) * 2 * kTile;
-    const bool second = s >= tiles;
-    const int j0 = (second ? s - tiles : s) * kKeys;
-    // the mask rows anew each stage too: four registers less to carry
-    const float* mr0 = mask_row(mask, n, wrow + g);
-    const float* mr1 = mask_row(mask, n, wrow + g + 8);
-    const int nk = n - j0;
-    if (nk >= kKeys)
-      blocked_stage<4, false>(st, qw, kb, second, scale, mr0, mr1, n, j0, lane);
-    else if (nk > 48)
-      blocked_stage<4, true>(st, qw, kb, second, scale, mr0, mr1, n, j0, lane);
-    else if (nk > 32)
-      blocked_stage<3, true>(st, qw, kb, second, scale, mr0, mr1, n, j0, lane);
-    else if (nk > 16)
-      blocked_stage<2, true>(st, qw, kb, second, scale, mr0, mr1, n, j0, lane);
-    else
-      blocked_stage<1, true>(st, qw, kb, second, scale, mr0, mr1, n, j0, lane);
+  for (int off = 1; off <= 2; off <<= 1) {
+    st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, off);
+    st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, off);
   }
-  if (live)
-    store_warp(qw, st.o, out + (size_t)seq * n * width + h * kHeadDim, width,
-               wrow, n, lane);
+  const float i0 = __frcp_rn(st.l0), i1 = __frcp_rn(st.l1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // rows g and g + 8 share their swizzle (g + 8 = g mod 8)
+    const int col = ((j ^ g) << 3) + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + g * kHeadDim + col) =
+        pack_bf16(st.o[4 * j] * i0, st.o[4 * j + 1] * i0);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kHeadDim + col) =
+        pack_bf16(st.o[4 * j + 2] * i1, st.o[4 * j + 3] * i1);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * 8; e += 32) {
+    const int r = e >> 3, c = e & 7;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(out_head + (size_t)(row0 + r) * width + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * kHeadDim
+                                          + ((c ^ (r & 7)) << 3));
+  }
 }
+
+// K4b, bf16, for a last key tile of 16 NK16 live keys or fewer. A
+// persistent grid of kBlocksPerSm blocks an SM walks the work items
+// (sequence, head, block of kRowsB q rows), item w + k gridDim.x for block
+// w; neighbouring items are q blocks of one (sequence, head), which run
+// together, so its k and v come from L2 after the first. kThreadsB threads:
+// kWarpgroups consumer warpgroups of 64 q rows and one producer warp, whose
+// one thread issues every TMA copy (tmap: qkv as [b][n][3 width], rows
+// past n read as zero) and runs ahead of the consumers across items: the
+// next item's q and first tiles load while this one computes and stores.
+// Shared memory (1024-byte aligned): two q buffers [kRowsB][64], a ring of
+// kStages stages of a k and a v tile [64][64], bf16 under the 128-byte
+// swizzle, then the barriers: a full and an empty one a q buffer and a
+// stage. The g-th tile a block walks (over all its items) lives in stage
+// g % kStages; a stage or q buffer is refilled once every consumer warp
+// has released it
+template <int NK16, bool MASK>
+__global__ void __launch_bounds__(kThreadsB, kBlocksPerSm)
+attention_blocked_bf16(const __grid_constant__ CUtensorMap tmap,
+                       const float* __restrict__ mask, bf16* __restrict__ out,
+                       int n, int heads, int items, float scale) {
+  extern __shared__ uint4 smem4[];
+  constexpr int kTile = kKeys * kHeadDim;
+  constexpr int kQ = kRowsB * kHeadDim;
+  bf16* qbuf = reinterpret_cast<bf16*>(
+      reinterpret_cast<char*>(smem4)
+      + ((1024u - (smem_addr(smem4) & 1023u)) & 1023u));
+  bf16* ring = qbuf + 2 * kQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * kTile);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kStages;
+  const int width = heads * kHeadDim;
+  const int qblocks = (n + kRowsB - 1) / kRowsB;
+  const int tiles = (n + kKeys - 1) / kKeys;
+  // the warpgroup (kWarpgroups: the producer), read from lane 0 so that
+  // the compiler sees it uniform over each warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, kConsumers / 32);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == kWarpgroups) {
+    // the producer: one thread issues every copy
+    if (threadIdx.x != kConsumers) return;
+    int g = 0;
+    for (int w = blockIdx.x, k = 0; w < items; w += gridDim.x, ++k) {
+      const int sh = w / qblocks, seq = sh / heads, h = sh % heads;
+      const int row0 = (w % qblocks) * kRowsB;
+      bf16* q = qbuf + (k & 1) * kQ;
+      if (k >= 2) mbar_wait(q_empty + (k & 1), (k / 2 - 1) & 1);
+      mbar_arrive_expect_tx(q_full + (k & 1), kQ * 2);
+      for (int i = 0; i < kWarpgroups; ++i)
+        tma_load_3d(q + i * kWgRows * kHeadDim, &tmap, q_full + (k & 1),
+                    h * kHeadDim, row0 + i * kWgRows, seq);
+      for (int t = 0; t < tiles; ++t, ++g) {
+        const int s = g % kStages;
+        if (g >= kStages) mbar_wait(empty + s, (g / kStages - 1) & 1);
+        bf16* kt = ring + s * 2 * kTile;
+        mbar_arrive_expect_tx(full + s, 2 * kTileBytes);
+        tma_load_3d(kt, &tmap, full + s, width + h * kHeadDim, t * kKeys,
+                    seq);
+        tma_load_3d(kt + kTile, &tmap, full + s, 2 * width + h * kHeadDim,
+                    t * kKeys, seq);
+      }
+    }
+    return;
+  }
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const float c = MASK ? kLog2e : scale * kLog2e;
+  int g = 0;
+  for (int w = blockIdx.x, k = 0; w < items; w += gridDim.x, ++k) {
+    const int sh = w / qblocks, seq = sh / heads, h = sh % heads;
+    const int wrow = (w % qblocks) * kRowsB + wg * kWgRows;   // first row
+    const bool live = wrow < n;
+    const int r0 = wrow + 16 * warp + (lane >> 2);
+    bf16* qg = qbuf + (k & 1) * kQ + wg * kWgRows * kHeadDim;
+    const uint64_t dq = wgmma_desc_sw128(qg, 1);
+    WgState st;
+    st.m0 = st.m1 = -INFINITY;
+    st.l0 = st.l1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st.o[i] = 0.f;
+    if (live) mbar_wait(q_full + (k & 1), (k / 2) & 1);
+    for (int t = 0; t < tiles; ++t, ++g) {
+      const int s = g % kStages;
+      mbar_wait(full + s, (g / kStages) & 1);
+      if (live) {
+        const bf16* kt = ring + s * 2 * kTile;
+        const int j0 = t * kKeys;
+        // the last tile computes only its live 16-key groups (a ViT
+        // sequence is a square plus one: 1 live key of 64 at n = 577, 5 at
+        // n = 197)
+        if (t + 1 < tiles)
+          blocked_tile<4, false, MASK>(st, dq, kt, kt + kTile, scale, c,
+                                       mask, r0, n, j0);
+        else
+          blocked_tile<NK16, true, MASK>(st, dq, kt, kt + kTile, scale, c,
+                                         mask, r0, n, j0);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    if (live)
+      store_rows_wg(qg + 16 * warp * kHeadDim, st,
+                    out + (size_t)seq * n * width + h * kHeadDim, width,
+                    wrow + 16 * warp, n);
+    // the staging's generic writes before the next TMA writes there
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty + (k & 1));
+  }
+}
+
+typedef void (*BlockedBf16)(const CUtensorMap, const float*, bf16*, int, int,
+                            int, float);
+
+template <bool MASK>
+BlockedBf16 blocked_bf16_kernel_m(int nk16) {
+  switch (nk16) {
+    case 1: return attention_blocked_bf16<1, MASK>;
+    case 2: return attention_blocked_bf16<2, MASK>;
+    case 3: return attention_blocked_bf16<3, MASK>;
+    default: return attention_blocked_bf16<4, MASK>;
+  }
+}
+
+// K4b bf16's kernel for n keys: by the live 16-key groups of the last tile
+inline BlockedBf16 blocked_bf16_kernel(int n, bool masked) {
+  const int nk16 = (n - (n - 1) / kKeys * kKeys + 15) / 16;
+  return masked ? blocked_bf16_kernel_m<true>(nk16)
+                : blocked_bf16_kernel_m<false>(nk16);
+}
+
 
 // ---------------------------------------------------------------- fp32
 
@@ -827,13 +1016,61 @@ size_t rows_smem_bytes(int n, int is_bf16) {
                  : sizeof(float) * np * (3 * kPitchF + kPitchP);
 }
 
-// K4b: q of 128 rows and, in bf16, two stages of a k and a v tile; in fp32
-// one k tile, one v tile and the p strips. No term depends on n
+// K4b: in bf16 1024 bytes to align the tiles for the swizzle, two q
+// buffers of kRowsB rows and kStages stages of a k and a v tile in 128-byte
+// rows, and the barriers (a full and an empty one a q buffer and a stage);
+// in fp32 q of 128 rows, one k tile, one v tile and the p strips. No term
+// depends on n
 size_t blocked_smem_bytes(int is_bf16) {
   return is_bf16
-      ? sizeof(bf16) * (kBlockRows + 4 * kKeys) * kPitchB
+      ? 1024 + sizeof(bf16) * (2 * kRowsB + 2 * kStages * kKeys) * kHeadDim
+            + sizeof(uint64_t) * (4 + 2 * kStages)
       : sizeof(float) * ((kBlockRows + 2 * kKeys) * kPitchF
                          + kBlockRows * kPitchP);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (the library is
+// not linked against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// K4b bf16's tensor map: qkv [b][n][3 width] bf16, boxes of 64 rows x 64
+// values (a head's q, k or v rows) under the 128-byte swizzle; rows past
+// n read as zero
+cudaError_t qkv_tensor_map(CUtensorMap* map, const void* qkv, int b, int n,
+                           int width) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)3 * width, (cuuint64_t)n,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)3 * width * sizeof(bf16),
+                                 (cuuint64_t)n * 3 * width * sizeof(bf16)};
+  const cuuint32_t box[3] = {kHeadDim, kKeys, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(qkv), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename K, typename T>
@@ -890,13 +1127,35 @@ int tclip_attention_blocked(const void* qkv, const float* mask, void* out,
                             void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = tclip::blocked_smem_bytes(bf16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const long long items =
+        (long long)b * heads * ((n + tclip::kRowsB - 1) / tclip::kRowsB);
+    if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks =
+        items < (long long)tclip::kBlocksPerSm * sms
+            ? items : (long long)tclip::kBlocksPerSm * sms;
+    CUtensorMap map;
+    err = tclip::qkv_tensor_map(&map, qkv, b, n, heads * tclip::kHeadDim);
+    if (err != cudaSuccess) return (int)err;
+    const tclip::BlockedBf16 kernel =
+        tclip::blocked_bf16_kernel(n, mask != nullptr);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((unsigned)blocks), tclip::kThreadsB, smem, st>>>(
+        map, mask, static_cast<tclip::bf16*>(out), n, heads, (int)items,
+        scale);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid(b * heads,
                   (n + tclip::kBlockRows - 1) / tclip::kBlockRows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)tclip::launch(tclip::attention_blocked_bf16, grid, 256, smem,
-                              st, static_cast<const tclip::bf16*>(qkv), mask,
-                              static_cast<tclip::bf16*>(out), n, heads, scale);
   return (int)tclip::launch(tclip::attention_blocked_f32, grid, 256, smem, st,
                             static_cast<const float*>(qkv), mask,
                             static_cast<float*>(out), n, heads, scale);

@@ -7,21 +7,29 @@ Two CUDA C++ kernels for sm_90a (``csrc/attention.cu``) replace the TPU's:
   of ceil(n / 16) warps per (sequence, head) holds the head's q, k and v in
   shared memory; n <= 128 (the text towers' 77, ViT-B/32's 50);
 * K4b ``attention_blocked`` — ``_attn_kernel_blocked``
-  (``_fused_attention_blocked``): one block of 8 warps per (sequence, head,
-  128 q rows) streams k and v through tiles of 64 rows; any n.
+  (``_fused_attention_blocked``): one block per (sequence, head, 128 q rows)
+  streams k and v through tiles of 64 rows; any n.
 
-Both keep the TPU kernel's order of operations: the q.k dot in fp32 from the
-qkv dtype, ``* scale``, ``+ mask`` as fp32, the max, exp, sum and division in
-fp32, p rounded to the qkv dtype, p.v accumulated in fp32, the output
-rounded to the qkv dtype. A warp owns 16 q rows and no score row ever lies
-in shared or device memory. The text tower's bf16 shape is bound by bytes
-and ViT-L/14@336px's fp32 shape by FFMA operations, so:
+Both compute the q.k dot in fp32 from the qkv dtype, ``* scale``, ``+ mask``
+as fp32, the max, exp and sum in fp32, p.v accumulated in fp32 and the
+output rounded to the qkv dtype; no score row ever lies in shared or device
+memory. The text tower's bf16 shape is bound by bytes and ViT-L/14@336px's
+fp32 shape by FFMA operations, so:
 
-* bf16 runs both products on tensor cores (``mma.sync`` m16n8k16, fragments
-  by ``ldmatrix``) with the scores in registers. K4a holds a warp's whole
-  [16, n] score block there; K4b walks the key tiles twice (a running max
-  and sum first, then ``p = exp(s - m) / sum`` rounded and multiplied), so
-  that p is normalised before it is rounded, as on the TPU;
+* K4a in bf16 keeps the TPU kernel's order (p normalised, then rounded to
+  bf16, then multiplied): both products on tensor cores (``mma.sync``
+  m16n8k16, fragments by ``ldmatrix``), a warp's whole [16, n] score block
+  in registers;
+* K4b in bf16 walks the keys once with an online softmax on ``wgmma``: a
+  persistent grid of blocks of two consumer warpgroups of 64 q rows and a
+  producer warp that copies q and the k / v tiles by TMA into a ring in
+  shared memory under the 128-byte swizzle; s = q.k^T into registers,
+  e = exp(s - m) by ``ex2`` on pre-scaled scores, the sum of the
+  unrounded e, e rounded to bf16 straight into the A operand of
+  ``o += e.v``; the max in use m moves (and the sum and o are rescaled)
+  only when a row of the warp passes it by ``SLACK`` in log2 units; one
+  reciprocal a row at the end. It rounds the unnormalised e where the TPU
+  rounds p: within one bf16 ulp of the output;
 * fp32 runs FFMA on a 4 x 8 register tile a thread with float4 operand
   reads and an online softmax (running max and sum, rescaled accumulators,
   one division at the end): p is not rounded in fp32, so only the order of
@@ -36,7 +44,7 @@ head_dim 64 (every OpenAI tower); the plain version takes any.
 (:func:`fused_attention_reference`) for tensors on the CPU, and only then;
 for CUDA tensors it launches a kernel or raises. ``attention_rows.launches``
 and ``attention_blocked.launches`` count the launches.
-:func:`fused_attention_tiled_reference` repeats the kernels' tiled order of
+:func:`fused_attention_tiled_reference` repeats K4b's tiled order of
 operations in torch ops for the CPU tests.
 """
 
@@ -44,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -53,7 +62,12 @@ SOURCE = "attention.cu"
 HEAD_DIM = 64
 WARP_ROWS = 16     # q rows of a warp (csrc kWarpRows)
 KEYS = 64          # rows of a k / v tile (csrc kKeys)
-BLOCK_ROWS = 128   # q rows of a K4b block (csrc kBlockRows)
+BLOCK_ROWS = 128   # q rows of a K4b block (csrc kBlockRows; in bf16
+#                    kRowsB = WARPGROUPS x WG_ROWS, the same 128)
+WG_ROWS = 64       # q rows of a K4b bf16 warpgroup (csrc kWgRows)
+WARPGROUPS = 2     # consumer warpgroups of a K4b bf16 block (csrc kWarpgroups)
+STAGES = 4         # k / v tiles of K4b bf16's ring (csrc kStages)
+SLACK = 8.0        # log2 units a row may pass K4b bf16's max in use (kSlack)
 ROWS_MAX_N = 128   # K4a's longest sequence (csrc kRowsMaxN): in bf16 a
 #                    warp's [16, n] fp32 scores stay in registers
 PITCH_BF16 = 72    # bf16 row pitch of q, k, v in shared memory (csrc kPitchB)
@@ -68,15 +82,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    for fn in (lib.tclip_attention_rows, lib.tclip_attention_blocked):
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P]
-        fn.restype = _I
+def bind(lib):
+    """``lib`` with the argument types of the attention entries it has."""
+    for name in ("tclip_attention_rows", "tclip_attention_blocked"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P]
+            getattr(lib, name).restype = _I
     lib.tclip_error_string.argtypes = [_I]
     lib.tclip_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind(kernel_build.load(SOURCE))
 
 
 def rows_smem_bytes(n: int, dtype) -> int:
@@ -89,11 +108,15 @@ def rows_smem_bytes(n: int, dtype) -> int:
 
 
 def blocked_smem_bytes(dtype) -> int:
-    """K4b's shared memory, the same for every n: q of 128 rows and, in
-    bf16, two stages of a k and a v tile; in fp32 one k tile, one v tile and
-    the p strips."""
+    """K4b's shared memory, the same for every n. bf16: 1024 bytes to align
+    the tiles, two q buffers of WARPGROUPS x WG_ROWS rows and a ring of
+    STAGES stages of a k and a v tile, in rows of 128 bytes (the 128-byte
+    swizzle of wgmma and TMA, no padding), and the 8-byte barriers (a full
+    and an empty one a q buffer and a stage); fp32: q of 128 rows, one k
+    tile, one v tile and the p strips."""
     if dtype == torch.bfloat16:
-        return 2 * (BLOCK_ROWS + 4 * KEYS) * PITCH_BF16
+        rows = 2 * WARPGROUPS * WG_ROWS + 2 * STAGES * KEYS
+        return 1024 + 2 * HEAD_DIM * rows + 8 * (4 + 2 * STAGES)
     return 4 * ((BLOCK_ROWS + 2 * KEYS) * PITCH_FP32 + BLOCK_ROWS * PITCH_P)
 
 
@@ -170,13 +193,26 @@ def _guard(m):
     return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
 
 
+def _warp_any(x):
+    """x [b, heads, n, 1] bool -> True for every row of a 16-row group (the
+    rows of one warp in K4b bf16) in which any row is True."""
+    b, h, n, _ = x.shape
+    pad = -n % WARP_ROWS
+    g = torch.nn.functional.pad(x[..., 0], (0, pad)).reshape(b, h, -1,
+                                                             WARP_ROWS)
+    return g.any(-1, keepdim=True).expand(-1, -1, -1, WARP_ROWS).reshape(
+        b, h, n + pad, 1)[:, :, :n]
+
+
 def fused_attention_tiled_reference(qkv, heads: int, mask=None):
-    """The kernels' order of operations in torch ops, the keys walked in
-    tiles of ``KEYS``; for the tests only. bf16: two passes, a running max
-    and sum of exp first, then ``p = exp(s - m) / sum`` with the final m and
-    sum, rounded to bf16 and multiplied by v. fp32: one pass with a running
-    max and sum, the accumulators rescaled when the max moves, one division
-    at the end. A running max that is still -inf subtracts as 0."""
+    """K4b's order of operations in torch ops, the keys walked once in tiles
+    of ``KEYS``; for the tests only. One pass with a running max and sum,
+    the accumulators rescaled when the max moves, one division at the end.
+    fp32: ``o += e . v`` with e = exp(s - m) in fp32. bf16: the sum takes e
+    unrounded and ``o += e . v`` takes e rounded to bf16 (the TPU rounds the
+    normalised p instead), and the max in use moves only when a row of the
+    warp's 16 passes it by more than ``SLACK`` in log2 units. A max that is
+    still -inf subtracts as 0."""
     b, n, width = _split(qkv, heads)
     hd = width // heads
     q, k, v = (t.permute(0, 2, 1, 3).float()
@@ -185,29 +221,29 @@ def fused_attention_tiled_reference(qkv, heads: int, mask=None):
     m = torch.full((b, heads, n, 1), float("-inf"))
     l = torch.zeros((b, heads, n, 1))
     o = torch.zeros((b, heads, n, hd))
-    tiles = [(j0, min(j0 + KEYS, n)) for j0 in range(0, n, KEYS)]
-    online = qkv.dtype == torch.float32
-    for j0, j1 in tiles:
+    lazy = qkv.dtype == torch.bfloat16
+    for j0 in range(0, n, KEYS):
+        j1 = min(j0 + KEYS, n)
         s = _tile_scores(q, k, hd, mask, j0, j1)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        t = s.amax(-1, keepdim=True)
+        m_new = torch.maximum(m, t)
+        if lazy:
+            # (t - m) log2(e) > SLACK, -inf - -inf (nan) not
+            up = _warp_any((t - m) * math.log2(math.e) > SLACK)
+            m_new = torch.where(up, m_new, m)
         alpha = torch.exp(m - _guard(m_new))
+        if lazy:
+            alpha = torch.where(up, alpha, torch.ones_like(alpha))
         e = torch.exp(s - _guard(m_new))
         l = l * alpha + e.sum(-1, keepdim=True)
-        if online:
-            o = o * alpha + torch.matmul(e, v[:, :, j0:j1])
+        o = o * alpha + torch.matmul(e.to(qkv.dtype).float(), v[:, :, j0:j1])
         m = m_new
-    if online:
-        o = o / l
-    else:
-        for j0, j1 in tiles:
-            s = _tile_scores(q, k, hd, mask, j0, j1)
-            p = (torch.exp(s - _guard(m)) / l).to(qkv.dtype)
-            o = o + torch.matmul(p.float(), v[:, :, j0:j1])
-    return o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, width)
+    return (o / l).to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, width)
 
 
-def _launch(entry, qkv, heads, mask):
-    """Checks, allocates and launches."""
+def _launch(entry, qkv, heads, mask, lib=None):
+    """Checks, allocates and launches (from ``lib``, a library bound by
+    :func:`bind`; this module's own by default)."""
     b, n, width = _split(qkv, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"{entry}: qkv is on {qkv.device}; the kernel takes "
@@ -224,7 +260,7 @@ def _launch(entry, qkv, heads, mask):
         raise ValueError(f"{entry}: qkv must be aligned to 16 bytes (the "
                          "kernels copy 16 bytes at a time)")
     out = torch.empty((b, n, width), dtype=qkv.dtype, device=qkv.device)
-    lib = _library()
+    lib = lib or _library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(
