@@ -2458,7 +2458,7 @@ def run_task_parallel(root, counters, records):
         make_task_group,
         spawn_ranks,
     )
-    from transductive_clip_tpu_torch.parallel import task_parallel as tp
+    from transductive_clip_tpu_torch.core.profiling import PhaseTimer
 
     dp_launches = {name: 0 for name in counters}
     zs = ["shots", "0", "method", "em_dirichlet"]
@@ -2482,11 +2482,11 @@ def run_task_parallel(root, counters, records):
                 alone, grouped = {}, {}
                 run_main_path(root, label + " no group", opts, n, counters,
                               window=alone)
-                calls = tp.all_reduce.calls + tp.gather_host.calls
-                run_main_path(root, label + " world 1",
-                              opts + ["data_parallel", "True"], n, counters,
-                              window=grouped, group=group)
-                calls = tp.all_reduce.calls + tp.gather_host.calls - calls
+                with PhaseTimer().active() as timer:
+                    run_main_path(root, label + " world 1",
+                                  opts + ["data_parallel", "True"], n,
+                                  counters, window=grouped, group=group)
+                calls = _collectives(timer)
                 _same_batches(f"task_parallel {label}", grouped["batches"],
                               alone["batches"])
                 for name, got in grouped["launches"].items():
@@ -2621,7 +2621,7 @@ def _class_tp_run(method, batch, device):
     collectives it issued and the bytes its all-reduces moved)."""
     import torch
 
-    from transductive_clip_tpu_torch.parallel import task_parallel as tp
+    from transductive_clip_tpu_torch.core.profiling import PhaseTimer
 
     infer = method._infer
 
@@ -2634,13 +2634,19 @@ def _class_tp_run(method, batch, device):
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    calls = tp.all_reduce.calls + tp.gather_host.calls
-    nbytes = tp.all_reduce.bytes
-    logs = method.run_task(batch)
+    with PhaseTimer().active() as timer:
+        logs = method.run_task(batch)
     u = kept.u.cpu().numpy()
     peak = torch.cuda.max_memory_allocated(device) - base
-    return (logs, u, peak, tp.all_reduce.calls + tp.gather_host.calls - calls,
-            tp.all_reduce.bytes - nbytes)
+    return (logs, u, peak, _collectives(timer),
+            int(timer.totals["parallel.all_reduce_bytes"]))
+
+
+def _collectives(timer):
+    """The collectives a run issued, as its timer counted them: device
+    all-reduces and exchanges of host values."""
+    return int(timer.totals["parallel.all_reduce_calls"]
+               + timer.totals["parallel.gather_host_calls"])
 
 
 def _class_tp_rank(group, root):

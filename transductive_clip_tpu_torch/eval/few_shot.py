@@ -292,7 +292,9 @@ class EvaluatorFewShot:
                 deferred, t_tail0 = [], time.perf_counter()
 
         try:
-            with trace_if_requested(args.get("profile_dir")):
+            # the timer is the sink of what the code under it records
+            # (core.profiling: the method's spans and counters)
+            with timer.active(), trace_if_requested(args.get("profile_dir")):
                 pending = pool.submit(make_batch) if prefetch else None
                 for b in range(n_batches):
                     with timer.phase("sampling"):
@@ -339,13 +341,14 @@ class EvaluatorFewShot:
                     results_time.append(logs["timestamps"])
                     if defer:
                         t_tail0 = time.perf_counter()
+                if deferred:
+                    finalize_deferred(deferred, t_tail0, int(args.batch_size),
+                                      results_task, results_time, timer,
+                                      group)
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)
 
-        if deferred:
-            finalize_deferred(deferred, t_tail0, int(args.batch_size),
-                              results_task, results_time, timer, group)
         self._log("phase timing -- " + timer.summary())
         self.task_accuracies = results_task
         return mean_results(results_task, results_time, self.logger)

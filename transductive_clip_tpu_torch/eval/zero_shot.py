@@ -338,7 +338,9 @@ class EvaluatorZeroShot:
         # its duplicate solve stays out of the timestamps through the
         # method's _untimed_overhead_s
         batches_since_guard = 0
-        with trace_if_requested(args.get("profile_dir")):
+        # the timer is the sink of what the code under it records
+        # (core.profiling: the method's spans and counters)
+        with timer.active(), trace_if_requested(args.get("profile_dir")):
             for b in range(n_batches):
                 # re-read each batch: a tripped guard turns the fast path
                 # (and so the cadence) off for the evaluation
@@ -414,8 +416,8 @@ class EvaluatorZeroShot:
                 if defer:
                     t_tail0 = time.perf_counter()   # a new deferred window
 
-        if deferred:
-            settle()
+            if deferred:
+                settle()
         self._log("phase timing -- " + timer.summary())
         self.task_accuracies = results_task
         return mean_results(results_task, results_time, self.logger)

@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.profiling import count
 from ...ops.common import EPS, get_one_hot, select_rows_covering, to_host
 from ...parallel.task_parallel import batch_rows, class_shard, task_share
 from ...ops.dirichlet import (
@@ -90,7 +91,8 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
 
     Returns (u [N, n, K], criterions [n_iter]); with ``return_n_iter`` also
     the executed iteration count and the max populated-cluster count any
-    compact iteration consumed (host ints). ``early_stop_tol`` is compared
+    compact iteration consumed (host ints), the former also counted in
+    ``em.iterations`` (core.profiling). ``early_stop_tol`` is compared
     in fp32, as the JAX package compares it. ``group``: the tasks are this
     rank's equal share of the group's batch, whose decisions and criterion
     trace these are. Under ``group.tp`` > 1 this rank holds 1/tp of the
@@ -270,6 +272,7 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         crits = torch.where(steps >= it, crit, crits)
         it += 1
     u = cs.gather(u)
+    count("em.iterations", it)
     if return_n_iter:
         return u, crits, it, pop_max
     return u, crits

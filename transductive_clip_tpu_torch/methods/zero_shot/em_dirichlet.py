@@ -64,6 +64,7 @@ import warnings
 import numpy as np
 import torch
 
+from ...core.profiling import count
 from ...ops.common import (
     EPS,
     device_sync,
@@ -266,6 +267,8 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
     any compact iteration consumed.
 
     ``early_stop_tol`` is compared in fp32, as the JAX package compares it.
+    The executed iterations are counted in ``em.iterations``
+    (core.profiling).
 
     ``group`` (a parallel.TaskGroup): ``query`` is this dp slice's
     contiguous share of a batch of ``group.dp`` equal shares. Every
@@ -425,6 +428,7 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
             lambda r: bool(r.max() >= tol), share2)
         u = u.index_copy(0, t_idx, narrow[0])
     u = cs.gather(u)
+    count("em.iterations", it)
     if return_iter_split:
         return u, crits, np.array([it, it_full]), pop_max
     return u, crits

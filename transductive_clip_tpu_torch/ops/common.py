@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.profiling import span
+
 # Matches the epsilon used throughout the reference methods
 # (reference: src/methods/zero_shot/em_dirichlet.py:20).
 EPS = 1e-15
@@ -42,9 +44,11 @@ def to_host(*tensors):
     """Copy tensors to host numpy arrays: one synchronising transfer, counted
     in ``to_host.syncs``. Every data-dependent host decision of the port
     reads its operands through here, so the count is the number of times a
-    batch makes the host wait for the card."""
+    batch makes the host wait for the card; the wait and the copy are the
+    span ``host_wait`` (core.profiling)."""
     to_host.syncs += 1
-    out = tuple(t.detach().cpu().numpy() for t in tensors)
+    with span("host_wait"):
+        out = tuple(t.detach().cpu().numpy() for t in tensors)
     return out[0] if len(out) == 1 else out
 
 
@@ -53,10 +57,12 @@ to_host.syncs = 0
 
 def device_sync(x):
     """Block until the work producing ``x`` (a tensor) is done; counted with
-    the transfers in ``to_host.syncs``."""
+    the transfers in ``to_host.syncs``, and timed in their span
+    ``host_wait``."""
     to_host.syncs += 1
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
+    with span("host_wait"):
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
     return x
 
 

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..core.profiling import count, span
 from ..parallel.task_parallel import batch_sum
 from .common import to_host
 from .special import (
@@ -185,9 +186,13 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
     ``tol``, and from then on ``s`` stays at that step's value. The host
     reads the flag every NEWTON_CHECK_EVERY steps, so a solve makes one
     transfer for every NEWTON_CHECK_EVERY steps and runs at most
-    NEWTON_CHECK_EVERY - 1 steps past its stop, which change nothing."""
+    NEWTON_CHECK_EVERY - 1 steps past its stop, which change nothing.
+
+    The solve is the span ``newton`` (core.profiling: host time, the flag
+    reads included) and counts its steps, launched ones past the stop too,
+    in ``newton.steps`` and, times its rows a task, in
+    ``newton.row_steps``."""
     check_every = NEWTON_CHECK_EVERY
-    s = alpha0.sum(-1)                                        # [..., R]
     live = row_mask
 
     def newton_step(s):
@@ -200,23 +205,28 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
               & (torch.abs(fprime) > 1e-12))
         return torch.where(ok, s_newton, a_sum)
 
-    done = torch.zeros((), dtype=torch.bool, device=s.device)
-    for it in range(1, max_iters + 1):
-        s_new = newton_step(s)
-        if live is not None:
-            s_new = torch.where(live, s_new, s)
-        num = _per_task((s_new - s) ** 2)
-        s_live = s if live is None else torch.where(live, s, 0.0)
-        crit = _crit(num, _per_task(s_live * s_live), share, cs)
-        s = torch.where(done, s, s_new)
-        done = done | (crit < tol)
-        if it % check_every == 0 and it < max_iters and to_host(done):
-            break
-    # one final elementwise pass at the converged row-sum
-    alpha = inv_digamma(digamma_pos(s)[..., None] + y_cst,
-                        newton_iters=newton_iters)
-    if row_mask is not None:
-        alpha = torch.where(row_mask[..., None], alpha, alpha0)
+    with span("newton"):
+        s = alpha0.sum(-1)                                    # [..., R]
+        done = torch.zeros((), dtype=torch.bool, device=s.device)
+        it = 0
+        for it in range(1, max_iters + 1):
+            s_new = newton_step(s)
+            if live is not None:
+                s_new = torch.where(live, s_new, s)
+            num = _per_task((s_new - s) ** 2)
+            s_live = s if live is None else torch.where(live, s, 0.0)
+            crit = _crit(num, _per_task(s_live * s_live), share, cs)
+            s = torch.where(done, s, s_new)
+            done = done | (crit < tol)
+            if it % check_every == 0 and it < max_iters and to_host(done):
+                break
+        # one final elementwise pass at the converged row-sum
+        alpha = inv_digamma(digamma_pos(s)[..., None] + y_cst,
+                            newton_iters=newton_iters)
+        if row_mask is not None:
+            alpha = torch.where(row_mask[..., None], alpha, alpha0)
+    count("newton.steps", it)
+    count("newton.row_steps", it * alpha0.shape[-2])
     return alpha
 
 

@@ -525,6 +525,7 @@ def newton_reads():
     import numpy as np
 
     from ..core.config import load_full_config
+    from ..core.profiling import PhaseTimer
     from ..methods import get_zero_shot_method
     from ..utils.synthetic import make_zero_shot_tasks
     from . import dirichlet as td
@@ -540,27 +541,20 @@ def newton_reads():
         x, y = make_zero_shot_tasks(rng, 100, 75, 1000)
         batches.append({"x_q": torch.as_tensor(x, device="cuda"),
                         "y_q": y[..., None]})
-    solve_step = td.inv_digamma_and_deriv
-    steps = [0]
-
-    def counted(*args, **kw):
-        steps[0] += 1
-        return solve_step(*args, **kw)
-
     def evaluation():
         method = get_zero_shot_method(cfg.name_method, args=cfg)
         out = []
         for task in batches:
             torch.cuda.synchronize()
-            to_host.syncs, steps[0] = 0, 0
+            to_host.syncs = 0
             t0 = time.perf_counter()
-            logs = method.run_task(task)
+            with PhaseTimer().active() as timer:
+                logs = method.run_task(task)
             out.append(((time.perf_counter() - t0) * 1e3, to_host.syncs,
-                        steps[0], logs["preds"]))
+                        int(timer.totals["newton.steps"]), logs["preds"]))
         return out
 
     default = td.NEWTON_CHECK_EVERY
-    td.inv_digamma_and_deriv = counted
     totals = {}
     try:
         preds = [p for *_, p in evaluation()]        # warm-up
@@ -579,7 +573,6 @@ def newton_reads():
                   f"{sum(r[1] for r in rest)} steps {sum(r[2] for r in rest)}"
                   f"  total_ms {total:.3f}", flush=True)
     finally:
-        td.inv_digamma_and_deriv = solve_step
         td.NEWTON_CHECK_EVERY = default
     for k, got in sorted(totals.items()):
         print(f"newton reads every {k}: median total_ms "

@@ -37,9 +37,11 @@ adds them up in task order, as the single-process run does too, so both
 round alike and take the same branches. Host values travel through the
 gloo groups as pickled objects. With ``group=None`` every function here is
 the identity and issues nothing, so the single-device path is unchanged;
-the class reductions are the identity at tp 1 as well. ``all_reduce.calls``
-and ``all_reduce.bytes``, and ``gather_host.calls``, count what a run
-issued.
+the class reductions are the identity at tp 1 as well. What a run issues
+is counted in the active ``core.profiling.PhaseTimer``, the port's one
+registry of spans and counters (the evaluators' timer during an
+evaluation): ``parallel.all_reduce_calls``, ``parallel.all_reduce_bytes``
+and ``parallel.gather_host_calls``.
 """
 
 from __future__ import annotations
@@ -49,20 +51,18 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from ..core.profiling import count
+
 
 def all_reduce(t, op, group, pg=None):
     """``dist.all_reduce`` of a copy of ``t`` on ``pg`` (``group.pg``, the
-    world, by default), counted in ``all_reduce.calls`` and
-    ``all_reduce.bytes``."""
-    all_reduce.calls += 1
-    all_reduce.bytes += t.numel() * t.element_size()
+    world, by default), counted in ``parallel.all_reduce_calls`` and
+    ``parallel.all_reduce_bytes``."""
+    count("parallel.all_reduce_calls")
+    count("parallel.all_reduce_bytes", t.numel() * t.element_size())
     t = t.clone()
     dist.all_reduce(t, op=op, group=group.pg if pg is None else pg)
     return t
-
-
-all_reduce.calls = 0
-all_reduce.bytes = 0
 
 
 def group_max(t, group):
@@ -288,17 +288,14 @@ def batch_sum(per_task, share):
 def gather_host(obj, group, world=False):
     """Every rank's ``obj`` (host values), in rank order, through a gloo
     group: the task group's ranks (the batch's shares), or with ``world``
-    every rank; counted in ``gather_host.calls``."""
+    every rank; counted in ``parallel.gather_host_calls``."""
     if group is None:
         return [obj]
-    gather_host.calls += 1
+    count("parallel.gather_host_calls")
     pg = group.host_pg if world else group.task_host_pg
     out = [None] * (group.world if world else group.dp)
     dist.all_gather_object(out, obj, group=pg)
     return out
-
-
-gather_host.calls = 0
 
 
 def barrier(group):
