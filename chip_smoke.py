@@ -19,7 +19,12 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    bound and the special-function unit's (SFU_PER_UPDATE), and K2 alone at
    the few-shot full width [100, 1000, 1000]; special.cuh's fast paths
    against IEEE fp32 on every float of their domains
-   (csrc/special_check.cu);
+   (csrc/special_check.cu); the Newton-Minka step kernel
+   (csrc/newton_minka.cu) against its plain version at the zero-shot
+   solve widths [100, R, 1000], R = 32, 91, 1000, with the row mask: one
+   step, two launches, whole solves (the same steps), ms a step beside the
+   plain step's and the bound (y read once, the MUFU count), ms a solve
+   and device launches a step on both routes (newton_minka_step);
 3. K3 against its plain version at the 4-shot protocol's shape
    [100, 4000, 1000, 1000] in 'highest' and 'default', at a ragged
    [3, 13, 150, 97] with non-uniform labels, and untimed at the edges of its
@@ -222,6 +227,17 @@ SFU_PER_UPDATE = {"dirichlet_row_solve": 19, "mm_row_solve": 8}
 # 16 MUFU operations a clock on each of the 132 SMs at the 1.98 GHz boost
 # clock (the clock behind the data sheet's 67 TFLOP/s fp32)
 PEAK_SFU_S = 132 * 16 * 1.98e9
+# the Newton-Minka step (csrc/newton_minka.cu) per live element: K1's
+# update, 3 Newton steps of psi^{-1}, and the reciprocal of the last
+# trigamma (one MUFU.RCP and its FMAs)
+NEWTON_OPS_PER_ELEMENT = OPS_PER_UPDATE["dirichlet_row_solve"] + 3
+NEWTON_SFU_PER_ELEMENT = SFU_PER_UPDATE["dirichlet_row_solve"] + 1
+# the zero-shot solve widths: the fast tier, the compact width, the full
+# width of the first EM iteration
+NEWTON_WIDTHS = (32, 91, N_CLASS)
+# one step, kernel against plain version on the same s: the sums' orders
+# differ (a warp's lanes and shuffles against torch's reductions)
+NEWTON_STEP_RTOL = 1e-5
 # solver tolerance: each version sums a block's num/den in its own order, so
 # near tol a block can stop one check apart — 49 more MM updates in K2,
 # each moving alpha by up to ~3e-6 relative there. The runs on the H100 show
@@ -2758,6 +2774,149 @@ def run_synthetic_protocol():
                  f"{out.returncode}: {out.stderr[-2000:]}")
 
 
+def _newton_launches(solve):
+    """Device launches (kernels, copies, fills) of one call of ``solve``,
+    under torch.profiler, and the call's Newton-Minka steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from transductive_clip_tpu_torch.core.profiling import PhaseTimer
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with PhaseTimer().active() as timer:
+            solve()
+        torch.cuda.synchronize()
+    return (sum(e.count for e in _device_events(prof)),
+            int(timer.totals["newton.steps"]))
+
+
+def run_newton_minka_step(records):
+    """The Newton-Minka step kernel (``cuda_newton``) against its plain
+    version at the zero-shot solve widths [100, R, 1000], R in
+    NEWTON_WIDTHS, on inputs built as the compact EM step builds them (row
+    mask included): one step (s_next within NEWTON_STEP_RTOL, frozen rows
+    and the done freeze bit-equal, two launches the same bits) and whole
+    solves through ``minka_newton_update_alpha`` (the same steps, alpha
+    within MAX_REL_DIFF, frozen rows alpha0's); ms a step (ten queued a
+    window) beside the plain step's and the bound (y read once at
+    PEAK_BYTES_S, the MUFU count at PEAK_SFU_S), ms a solve, and device
+    launches a step on both routes (torch.profiler)."""
+    import torch
+
+    from transductive_clip_tpu_torch.core.profiling import PhaseTimer
+    from transductive_clip_tpu_torch.ops import cuda_newton as cn
+    from transductive_clip_tpu_torch.ops import dirichlet as td
+    from transductive_clip_tpu_torch.ops.dirichlet_fixtures import (
+        newton_solve_inputs,
+    )
+
+    def plain_solve(a0, y, mask):
+        step, final = cn.newton_minka_step, cn.newton_minka_final
+        cn.newton_minka_step = (
+            lambda s, y, live, done, newton_iters=3, out=None:
+            cn.newton_minka_step_reference(s, y, live, done, newton_iters))
+        cn.newton_minka_final = cn.newton_minka_final_reference
+        try:
+            return td.minka_newton_update_alpha(a0, y, row_mask=mask)
+        finally:
+            cn.newton_minka_step, cn.newton_minka_final = step, final
+
+    rec = {"max_abs_err": 0.0, "widths": {}}
+    with Phase("newton_minka_step"):
+        for rows in NEWTON_WIDTHS:
+            name = f"[{N_TASK}, {rows}, {N_CLASS}]"
+            a0, y, mask = newton_solve_inputs(N_TASK, rows, N_CLASS, 40 + rows)
+            s = a0.sum(-1)
+            buf = torch.empty_like(s)
+            for flag in (False, True):
+                done = torch.tensor(flag, device="cuda")
+                got = cn.newton_minka_step(s, y, mask, done)
+                again = cn.newton_minka_step(s, y, mask, done)
+                want = cn.newton_minka_step_reference(s, y, mask, done)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"newton_minka_step {name}: two launches differ")
+                if not torch.equal(got[0][~mask], s[~mask]):
+                    fail(f"newton_minka_step {name}: a frozen row changed")
+                if flag and not torch.equal(got[0], s):
+                    fail(f"newton_minka_step {name}: done did not freeze s")
+                step_rel = ((got[0] - want[0]).abs()
+                            / want[0].abs().clamp_min(1e-6)).max().item()
+                crit = td._crit_sums(got[1]).item()
+                crit_ref = td._crit_sums(want[1]).item()
+                log(f"newton_minka_step {name} done={flag}: s_next "
+                    f"max_rel_diff {step_rel:.3e} criterion {crit:.6e} "
+                    f"plain {crit_ref:.6e}")
+                if not step_rel < NEWTON_STEP_RTOL:
+                    fail(f"newton_minka_step {name}: s_next differs by "
+                         f"{step_rel} >= {NEWTON_STEP_RTOL}")
+            with PhaseTimer().active() as timer:
+                alpha = td.minka_newton_update_alpha(a0, y, row_mask=mask)
+            steps = int(timer.totals["newton.steps"])
+            with PhaseTimer().active() as timer_ref:
+                ref = plain_solve(a0, y, mask)
+            steps_ref = int(timer_ref.totals["newton.steps"])
+            diff = (alpha - ref).abs()
+            rel = (diff / ref.abs().clamp_min(1e-6)).max().item()
+            rec["max_abs_err"] = max(rec["max_abs_err"], diff.max().item())
+            log(f"newton_minka_step {name}: solve steps {steps} plain "
+                f"{steps_ref} kernel_steps "
+                f"{int(timer.totals['newton.kernel_steps'])} alpha "
+                f"max_rel_diff {rel:.3e} max_abs_err {diff.max().item():.3e} "
+                f"live_rows {int(mask.sum())}")
+            if steps != steps_ref:
+                fail(f"newton_minka_step {name}: {steps} steps, the plain "
+                     f"version {steps_ref}")
+            if timer.totals["newton.kernel_steps"] != steps:
+                fail(f"newton_minka_step {name}: newton.kernel_steps "
+                     "differs from newton.steps")
+            if not rel < MAX_REL_DIFF:
+                fail(f"newton_minka_step {name}: alpha differs by {rel} >= "
+                     f"{MAX_REL_DIFF}")
+            if not torch.equal(alpha[~mask], a0[~mask]):
+                fail(f"newton_minka_step {name}: a frozen row of alpha "
+                     "is not alpha0's")
+            done = torch.zeros((), dtype=torch.bool, device="cuda")
+            elements = int(mask.sum()) * N_CLASS
+            w = {
+                "ms": time_ms(lambda: cn.newton_minka_step(
+                    s, y, mask, done, out=buf), inner=10),
+                "plain_ms": time_ms(lambda: cn.newton_minka_step_reference(
+                    s, y, mask, done), runs=3),
+                "solve_ms": time_ms(lambda: td.minka_newton_update_alpha(
+                    a0, y, row_mask=mask), runs=3),
+                "plain_solve_ms": time_ms(lambda: plain_solve(a0, y, mask),
+                                          runs=1),
+                "bytes_ms": 4 * elements / PEAK_BYTES_S * 1e3,
+                "sfu_ms": elements * NEWTON_SFU_PER_ELEMENT / PEAK_SFU_S * 1e3,
+                "ops_ms": elements * NEWTON_OPS_PER_ELEMENT / PEAK_FP32_S * 1e3,
+            }
+            w["bound_ms"] = max(w["bytes_ms"], w["sfu_ms"])
+            w["bound_by"] = "bytes" if w["bytes_ms"] >= w["sfu_ms"] else "SFU"
+            launches, kernel_steps = _newton_launches(
+                lambda: td.minka_newton_update_alpha(a0, y, row_mask=mask))
+            plain_launches, plain_steps = _newton_launches(
+                lambda: plain_solve(a0, y, mask))
+            w["launches_per_step"] = launches / kernel_steps
+            w["plain_launches_per_step"] = plain_launches / plain_steps
+            w["steps"] = steps
+            rec["widths"][rows] = w
+            log(f"newton_minka_step {name}: ms {w['ms']:.4f} plain_ms "
+                f"{w['plain_ms']:.4f} bound_ms {w['bound_ms']:.4f} "
+                f"({w['bound_by']}; bytes {w['bytes_ms']:.4f} SFU "
+                f"{w['sfu_ms']:.4f} operations {w['ops_ms']:.4f}; "
+                f"{elements:.4e} live elements) solve_ms {w['solve_ms']:.3f} "
+                f"plain_solve_ms {w['plain_solve_ms']:.3f} "
+                f"launches_per_step {w['launches_per_step']:.2f} plain "
+                f"{w['plain_launches_per_step']:.2f}")
+            del a0, y, mask, s, buf, alpha, ref
+        full = rec["widths"][N_CLASS]
+        rec.update({key: full[key] for key in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")})
+    records["newton_minka_step"] = rec
+
+
 def main():
     import torch
 
@@ -2769,6 +2928,7 @@ def main():
         from transductive_clip_tpu_torch.ops import cuda_auction as cau
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
         from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+        from transductive_clip_tpu_torch.ops import cuda_newton as cn
         from transductive_clip_tpu_torch.ops import cuda_tim as ct
         from transductive_clip_tpu_torch.ops import dirichlet_fixtures as fx
         from transductive_clip_tpu_torch.ops.auction import (
@@ -2831,6 +2991,11 @@ def main():
         "auction_assign": (cau.auction_assign, auction_assign_reference,
                            "transductive_clip_tpu/ops/auction.py:34",
                            "auction.cu"),
+        # no Pallas kernel: the body of the JAX Newton-Minka lax.while_loop
+        "newton_minka_step": (cn.newton_minka_step,
+                              cn.newton_minka_step_reference,
+                              "transductive_clip_tpu/ops/dirichlet.py:235",
+                              "newton_minka.cu"),
     }
     records = {}
     with Phase("kernels_vs_plain"):
@@ -2891,6 +3056,7 @@ def main():
         rec["max_abs_err"] = max(errs)
         rec["default"] = rec_bf16
         records["tim_support_grad"] = rec
+    run_newton_minka_step(records)
     run_kernel_checks_clip(records)
 
     counters = {name: k[0] for name, k in kernels.items()}
@@ -2919,10 +3085,14 @@ def main():
             if got["mm_row_solve"] <= 0:
                 fail("the hard main path launched mm_row_solve 0 times")
         with Phase("default_config"):
-            run_main_path(root, "em_dirichlet solver=auto",
-                          zs + ["method", "em_dirichlet", "dirichlet_solver",
-                                "auto"],
-                          N_TASK, counters)
+            _, _, got, _ = run_main_path(
+                root, "em_dirichlet solver=auto",
+                zs + ["method", "em_dirichlet", "dirichlet_solver", "auto"],
+                N_TASK, counters)
+            launches["newton_minka_step"] = got["newton_minka_step"]
+            if got["newton_minka_step"] <= 0:
+                fail("the default configuration launched newton_minka_step "
+                     "0 times")
         values = run_zero_shot_pipelines(root, counters, records, launches)
         run_auction_checks(records, values)
         del values
@@ -2971,7 +3141,7 @@ def main():
                                          "class_tp_launches",
                                          "rounds_max",
                                          "rounds_mean", "bids", "scans",
-                                         "ms_per_round")
+                                         "ms_per_round", "widths")
                if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)

@@ -12,7 +12,8 @@ transductive_clip_tpu/core/profiling.py).
 * ``span(name)`` and ``count(name, n)`` record into the active timer from
   wherever the work happens (``ops.common.to_host``: ``host_wait``;
   ``ops.dirichlet.minka_newton_update_alpha``: ``newton``,
-  ``newton.steps``, ``newton.row_steps``; the EM-Dirichlet loops:
+  ``newton.steps``, ``newton.kernel_steps`` (the steps that ran in
+  ``csrc/newton_minka.cu``), ``newton.row_steps``; the EM-Dirichlet loops:
   ``em.iterations``; ``parallel.task_parallel``: ``parallel.*``). With no
   timer active they do nothing (one global read).
 * While a profiler records, every span and phase is also a

@@ -30,7 +30,9 @@ import torch
 from ..core.profiling import count, span
 from ..parallel.task_parallel import batch_sum
 from .common import to_host
-from .special import (
+# cuda_newton's plain Newton-Minka step looks these names up here, so that
+# a patch of them on this module reaches it
+from .special import (  # noqa: F401
     digamma_pos,
     inv_digamma,
     inv_digamma_and_deriv,
@@ -49,13 +51,18 @@ def _per_task(x):
 
 def _crit(num, den, share=None, cs=None):
     """num / max(den, 1e-30) in fp32, as a 0-d tensor, from per-task
-    partial sums num, den [n] added up over the batch (over the ranks of
-    ``share``'s group, as one [n, 2] gather; under ``cs`` first over the
-    class group, whose ranks hold the rest of each task's rows)."""
-    x = torch.stack((num, den), -1)
+    partial sums num, den [n] added up over the batch (``_crit_sums``)."""
+    return _crit_sums(torch.stack((num, den), -1), share, cs)
+
+
+def _crit_sums(sums, share=None, cs=None):
+    """``_crit`` of the per-task pairs sums [n, 2] = (num, den), added up
+    over the batch (over the ranks of ``share``'s group, as one [n, 2]
+    gather; under ``cs`` first over the class group, whose ranks hold the
+    rest of each task's rows)."""
     if cs is not None:
-        x = cs.sum(x)
-    num, den = batch_sum(x, share)
+        sums = cs.sum(sums)
+    num, den = batch_sum(sums, share)
     return num / torch.clamp_min(den, 1e-30)
 
 
@@ -181,6 +188,10 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
     non-positive, or F' degenerate. ``row_mask``: False rows are frozen at
     ``alpha0`` and excluded from the criterion.
 
+    A step is one call of ``cuda_newton.newton_minka_step``: one kernel
+    launch on the card, its plain torch version on the CPU; the final pass
+    at the converged s is ``cuda_newton.newton_minka_final``.
+
     The stop is the JAX ``lax.while_loop``'s, kept on the device: a
     ``done`` flag turns on at the first step whose criterion is under
     ``tol``, and from then on ``s`` stays at that step's value. The host
@@ -190,42 +201,38 @@ def minka_newton_update_alpha(alpha0, y_cst, max_iters: int = 30,
 
     The solve is the span ``newton`` (core.profiling: host time, the flag
     reads included) and counts its steps, launched ones past the stop too,
-    in ``newton.steps`` and, times its rows a task, in
+    in ``newton.steps``, those that ran in the kernel in
+    ``newton.kernel_steps`` (0 on the CPU) and, times its rows a task, in
     ``newton.row_steps``."""
+    from .cuda_newton import newton_minka_final, newton_minka_step
+
     check_every = NEWTON_CHECK_EVERY
+    on_card = alpha0.device.type == "cuda"
     live = row_mask
-
-    def newton_step(s):
-        z = digamma_pos(s)[..., None] + y_cst
-        alpha, dinv = inv_digamma_and_deriv(z, newton_iters=newton_iters)
-        a_sum = alpha.sum(-1)                                 # A(s)
-        fprime = trigamma_pos(s) * dinv.sum(-1) - 1.0
-        s_newton = s - (a_sum - s) / fprime
-        ok = (torch.isfinite(s_newton) & (s_newton > 0.0)
-              & (torch.abs(fprime) > 1e-12))
-        return torch.where(ok, s_newton, a_sum)
-
+    if on_card:
+        # the kernels take contiguous inputs (the compact tiers pass slices)
+        y_cst = y_cst.contiguous()
+        live = None if live is None else live.contiguous()
     with span("newton"):
         s = alpha0.sum(-1)                                    # [..., R]
+        # the step writes into the buffer the step before it read (on the
+        # card; the plain version makes its own)
+        spare = torch.empty_like(s) if on_card else None
         done = torch.zeros((), dtype=torch.bool, device=s.device)
         it = 0
         for it in range(1, max_iters + 1):
-            s_new = newton_step(s)
-            if live is not None:
-                s_new = torch.where(live, s_new, s)
-            num = _per_task((s_new - s) ** 2)
-            s_live = s if live is None else torch.where(live, s, 0.0)
-            crit = _crit(num, _per_task(s_live * s_live), share, cs)
-            s = torch.where(done, s, s_new)
+            s_next, sums = newton_minka_step(
+                s, y_cst, live, done, newton_iters=newton_iters, out=spare)
+            crit = _crit_sums(sums, share, cs)
+            spare, s = s, s_next
             done = done | (crit < tol)
             if it % check_every == 0 and it < max_iters and to_host(done):
                 break
         # one final elementwise pass at the converged row-sum
-        alpha = inv_digamma(digamma_pos(s)[..., None] + y_cst,
-                            newton_iters=newton_iters)
-        if row_mask is not None:
-            alpha = torch.where(row_mask[..., None], alpha, alpha0)
+        alpha = newton_minka_final(s, y_cst, alpha0.contiguous(), live,
+                                   newton_iters=newton_iters)
     count("newton.steps", it)
+    count("newton.kernel_steps", it if on_card else 0)
     count("newton.row_steps", it * alpha0.shape[-2])
     return alpha
 

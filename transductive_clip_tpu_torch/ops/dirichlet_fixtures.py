@@ -1,9 +1,10 @@
 """Inputs and checks for the Dirichlet row-solve kernels K1 and K2
-(``cuda_dirichlet``), shared by ``chip_smoke.py``, the tests and
-``dirichlet_variants``: the EM step's inputs at a given shape, the edge
-cases of the cluster design, and the bit-for-bit check of ``special.cuh``'s
-fast paths (``csrc/special_check.cu``). Nothing of the port's solve path
-imports this module.
+(``cuda_dirichlet``) and the Newton-Minka step (``cuda_newton``), shared by
+``chip_smoke.py``, the tests and ``dirichlet_variants``: the EM step's
+inputs at a given shape, the edge cases of the cluster design, and the
+bit-for-bit check of ``special.cuh``'s fast paths
+(``csrc/special_check.cu``). Nothing of the port's solve path imports this
+module.
 """
 
 from __future__ import annotations
@@ -75,6 +76,19 @@ def edge_solve_inputs(n_task, n_rows, k, what, seed, device="cuda"):
     if keep is not None:
         y[0] = torch.where(keep[:, None], y[0], ROW_FREEZE)
     return a0, y.contiguous()
+
+
+def newton_solve_inputs(n_task, n_rows, k, seed, device="cuda"):
+    """(alpha0, y, row_mask) of a Newton-Minka solve as the compact EM step
+    passes them: synthetic_solve_inputs' y with its ROW_FREEZE rows turned
+    into row_mask False rows at the empty-cluster fill -10, and alpha0
+    drawn in [0.5, 2) (so that a frozen row's copy shows)."""
+    a0, y = synthetic_solve_inputs(n_task, n_rows, k, seed, device=device)
+    mask = y[..., 0] < ROW_FREEZE / 2
+    y = torch.where(mask[..., None], y, -10.0).contiguous()
+    g = torch.Generator(device=device).manual_seed(seed)
+    a0 = (0.5 + 1.5 * torch.rand(a0.shape, generator=g, device=device))
+    return a0.contiguous(), y, mask.contiguous()
 
 
 #: csrc/special_check.cu's checks, by its ``which`` index
