@@ -15,15 +15,28 @@ embeddings, rank 0 writes the caches and the ranks wait for it. Every
 rank of the world takes a share, whatever the group's ``tp``: the JAX
 package extracts on ``make_mesh(tp=1)``. The text prototypes are computed
 on every rank (identical, so nothing is exchanged) and written by rank 0.
+
+:func:`extract_to_caches` makes its own ``PhaseTimer`` the active one
+(core/profiling.py) around its body and logs its summary: span
+``extract.encode`` (the host issuing every batch's towers; once the card
+is a launch queue behind, the host waits inside it at the card's pace),
+span ``extract.first_issue`` (the host issuing a pass's first batch, with
+nothing of the pass queued ahead of it: the host's own issue time of a
+batch), the fetch's ``host_wait`` (``to_host``), span ``extract.softmax``
+(the host normalisation, then each target's softmax, one record each),
+counters ``extract.batches`` and ``extract.images``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
 
 import numpy as np
 import torch
 
+from ..core.profiling import PhaseTimer, count, span
 from ..features.cache import (
     save_feature_cache,
     softmax_cache_path,
@@ -31,6 +44,8 @@ from ..features.cache import (
 )
 from ..ops.common import to_host
 from ..parallel import barrier, class_layout
+
+_log = logging.getLogger(__name__)
 
 
 def _require_model(model, what):
@@ -90,28 +105,40 @@ def extract_to_caches(model, batches, targets, text_features=None,
     ``(T, path)`` of ``targets``: the L2-normalized embeddings for
     ``T=None``, else ``softmax(T * embeddings @ text_features^T)`` (host
     fp32, in place). The embeddings stay on the device until the last batch
-    is dispatched and come to the host in one transfer. Returns (normalized
-    embeddings [N, embed_dim], labels [N]) as numpy; ``write=False`` writes
-    no cache."""
-    pending, labels = [], []
-    for images, batch_labels in batches:
-        pending.append(model.encode_image_batch(images))
-        labels.append(np.asarray(batch_labels))
-    embeddings = np.array(to_host(torch.cat(pending)), np.float32)
-    embeddings /= np.linalg.norm(embeddings, axis=-1, keepdims=True)
-    all_labels = np.concatenate(labels)
-    for T, path in targets:
-        if T is None:
-            out = embeddings
-        else:
-            # in place: one [N, n_class] buffer instead of three
-            out = embeddings @ text_features.T
-            out *= T
-            out -= out.max(axis=-1, keepdims=True)
-            np.exp(out, out=out)
-            out /= out.sum(axis=-1, keepdims=True)
-        if write:
-            save_feature_cache(path, out, all_labels)
+    is dispatched and come to the host in one transfer. Returns
+    (normalized embeddings [N, embed_dim], labels [N]) as numpy;
+    ``write=False`` writes no cache."""
+    timer = PhaseTimer()
+    with timer.active():
+        pending, labels = [], []
+        with span("extract.encode"):
+            for images, batch_labels in batches:
+                first = (span("extract.first_issue") if not pending
+                         else contextlib.nullcontext())
+                with first:
+                    pending.append(model.encode_image_batch(images))
+                labels.append(np.asarray(batch_labels))
+                count("extract.batches")
+                count("extract.images", len(labels[-1]))
+        fetched = to_host(torch.cat(pending))
+        with span("extract.softmax"):
+            embeddings = np.array(fetched, np.float32)
+            embeddings /= np.linalg.norm(embeddings, axis=-1, keepdims=True)
+        all_labels = np.concatenate(labels)
+        for T, path in targets:
+            if T is None:
+                out = embeddings
+            else:
+                with span("extract.softmax"):
+                    # in place: one [N, n_class] buffer instead of three
+                    out = embeddings @ text_features.T
+                    out *= T
+                    out -= out.max(axis=-1, keepdims=True)
+                    np.exp(out, out=out)
+                    out /= out.sum(axis=-1, keepdims=True)
+            if write:
+                save_feature_cache(path, out, all_labels)
+    _log.info("extraction phase timing -- " + timer.summary())
     return embeddings, all_labels
 
 
