@@ -108,7 +108,10 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    of the first and the last attention module of each transformer tower
    (forward hooks), under K4_LIMIT; one batch timed through the kernel
    route and through the model's own plain route (``fused_resnet`` off:
-   cuDNN's bf16 convolutions); a torch.profiler breakdown of one steady
+   cuDNN's bf16 convolutions); the image tower's route named, with its
+   counters ``resnet.convs`` and ``resnet.fused_convs`` (the convolutions
+   whose bias, ReLU and residual add ran in cuDNN's fused epilogue) on
+   each route; a torch.profiler breakdown of one steady
    batch; then RN50 under float32 (``fused_resnet=True``: K5's fp32 kernel
    on the 12 identity blocks of every batch, K4a in the text tower) over
    every 32nd image of that split (254 images, cut from 8100), batches of
@@ -1928,6 +1931,35 @@ def time_routes(label, model, images, plain_attention="fused"):
     return kernel_ms, plain_ms
 
 
+def resnet_route(label, model, images, fp32):
+    """Name the route one batch's image tower took on the kernel route and
+    on the model's own plain route (``fused_resnet`` off), from the
+    counters ``resnet.convs`` and ``resnet.fused_convs`` of one forward
+    each: bf16 has to run some convolutions on cuDNN's fused epilogue,
+    fp32 none. Returns the fused count of each route."""
+    from transductive_clip_tpu_torch.core.profiling import PhaseTimer
+
+    got = {}
+    for route, fuse in (("fused_resnet=True", True),
+                        ("fused_resnet=False", False)):
+        set_routes(model, "fused", fuse)
+        with PhaseTimer().active() as timer:
+            model.encode_image_batch(images)
+        convs = int(timer.totals["resnet.convs"])
+        fused = int(timer.totals["resnet.fused_convs"])
+        k5 = sum(1 for b in model.fused_blocks if b.fuse) * 3
+        name = ("cuDNN fused epilogue" if fused else "plain graph") + (
+            f", K5 on {k5 // 3} identity blocks" if k5 else "")
+        log(f"{label} image tower, {route}: {name}; resnet.fused_convs "
+            f"{fused} of resnet.convs {convs}")
+        if (fused == 0) != fp32:
+            fail(f"{label}: {fused} convolutions of {convs} on the fused "
+                 f"epilogue ({'fp32 takes none' if fp32 else 'bf16 takes some'})")
+        got[route] = fused
+    set_routes(model, "fused", True)
+    return got
+
+
 def profile_encode(label, model, images):
     """Device busy share and top kernels of one steady encode batch; returns
     name -> (device ms, share of the busy time) of each port kernel that
@@ -2122,6 +2154,8 @@ def run_extraction(root, counters, records, launches):
                  "rows")
         compare_routes("RN50", model, first, prompts, counters)
         time_routes("RN50", model, first)
+        records["resnet.fused_convs"] = resnet_route("RN50", model, first,
+                                                     fp32=False)
         profile_encode("RN50 encode, one batch of 512", model, first)
         del first
         zero_shot_visual_rn50(model, root, dataset_path, counters, records)
@@ -2160,6 +2194,7 @@ def run_extraction(root, counters, records, launches):
                  "simplex rows")
         compare_routes("RN50 fp32", model, first, prompts, counters)
         time_routes("RN50 fp32", model, first)
+        resnet_route("RN50 fp32", model, first, fp32=True)
         # and at extract_batch_size's default, as an fp32 extraction runs
         big = next(pixel_batches(np.zeros(EXTRACT_BATCH, np.int64), 224,
                                  EXTRACT_BATCH, SEED))[0]

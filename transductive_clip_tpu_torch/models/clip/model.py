@@ -112,6 +112,10 @@ class TorchCLIP:
         module = CLIP(cfg, attn_impl=self.attention_impl,
                       fold_bn=self.fold_bn, fused_resnet=self.fused_resnet)
         module.load_state_dict(state_dict)
+        if self.fold_bn:
+            # in fp32, before the cast rounds it once
+            for block in module.visual.blocks():
+                block.prepare_epilogue_bias()
         self.module = module.to(device=self.device,
                                 dtype=self.compute_dtype).eval()
         self.module.requires_grad_(False)

@@ -14,6 +14,19 @@ math, eps 1e-5); ``fold_bn=False`` keeps the reference-shaped graph.
 (stride 1, no downsample) through K5 (``ops/cuda_bottleneck.py``) when its
 gate accepts the block; rejected blocks take the plain graph. The tower
 runs in ``torch.channels_last``, so K5 reads NHWC without a copy.
+
+Folded, on the card, in a 16-bit dtype, a convolution whose channels
+cuDNN's fused engines take (:func:`fused_epilogue_supported`) runs with its
+bias, its ReLU and, for a block's ``conv3``, the residual add in cuDNN's
+epilogue: one ``torch.cudnn_convolution_relu`` or
+``torch.cudnn_convolution_add_relu`` call in place of the convolution and
+two or three elementwise passes over its output (fp32 sums, rounded once).
+A downsampling block's shortcut convolution then runs without its bias,
+which ``prepare_epilogue_bias`` adds into ``conv3``'s once, in fp32. Every
+other case (the CPU, fp32, the unfolded graph, the stem's 3-channel
+convolution) takes the plain graph. Each forward counts its convolutions
+(``resnet.convs``) and those on the fused epilogue (``resnet.fused_convs``)
+on the active ``core.profiling`` timer.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.profiling import count
 from ...ops.cuda_bottleneck import (
     fused_bottleneck_supported,
     fused_identity_bottleneck,
@@ -31,6 +45,34 @@ from ...ops.cuda_bottleneck import (
 from .config import CLIPVisionConfig
 
 BN_EPS = 1e-5
+# the dtypes of cuDNN's fused conv-bias-add-ReLU graph in NHWC, and the
+# channel multiple its engines take without padding (16 bytes); the stem's
+# 3-channel convolution stays on the plain graph
+_EPILOGUE_DTYPES = (torch.bfloat16, torch.float16)
+_EPILOGUE_CHANNELS = 8
+
+
+def fused_epilogue_supported(device, folded, dtype, in_channels,
+                             out_channels) -> bool:
+    """Whether a convolution takes cuDNN's fused epilogue: on a CUDA
+    device, folded (so it has a bias), in bf16 or fp16, with both channel
+    counts multiples of 8."""
+    return (torch.device(device).type == "cuda" and bool(folded)
+            and dtype in _EPILOGUE_DTYPES
+            and in_channels % _EPILOGUE_CHANNELS == 0
+            and out_channels % _EPILOGUE_CHANNELS == 0)
+
+
+def _epilogue_admits(conv, x) -> bool:
+    return fused_epilogue_supported(x.device, conv.bias is not None, x.dtype,
+                                    conv.in_channels, conv.out_channels)
+
+
+def _conv_relu_fused(conv, x):
+    """relu(conv(x) + bias), one cuDNN call."""
+    return torch.cudnn_convolution_relu(x, conv.weight, conv.bias,
+                                        conv.stride, conv.padding,
+                                        conv.dilation, conv.groups)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -81,6 +123,9 @@ class Bottleneck(nn.Module):
         # K5 takes identity blocks only (resnet.py:80-98 of the JAX package)
         self.fuse = bool(fuse) and fold_bn and not downsample and stride == 1
         self._kernel_weights = None
+        # conv3's bias plus the shortcut's, for the fused epilogue; outside
+        # the state dict, cast and moved with the module
+        self.register_buffer("residual_bias", None, persistent=False)
 
     def prepare_kernel_weights(self):
         """K5's operands in its layout, made once (at load, after the
@@ -96,11 +141,52 @@ class Bottleneck(nn.Module):
                 self.conv3.bias.contiguous(),
             )
 
+    def prepare_epilogue_bias(self):
+        """The fused epilogue's bias of a downsampling block: ``conv3``'s
+        bias plus the shortcut convolution's, summed in fp32 (or wider)
+        and stored in the weights' dtype (at load, before the cast to the
+        compute dtype, it is rounded once). The state dict is left as it
+        is."""
+        if self.fold_bn and self.downsample is not None:
+            b3, b_short = self.conv3.bias, self.downsample[1].bias
+            acc = torch.promote_types(b3.dtype, torch.float32)
+            with torch.no_grad():
+                self.residual_bias = (b3.to(acc) + b_short.to(acc)).to(
+                    b3.dtype)
+
     def _plain(self, conv, bn, x):
         y = conv(x)
         return bn(y) if bn is not None else y
 
+    def _fused_epilogue(self, x):
+        """The folded block with every bias, ReLU and the residual add in
+        cuDNN's epilogues; the shortcut convolution runs bias-free, its
+        bias in ``residual_bias``."""
+        if self.downsample is not None and self.residual_bias is None:
+            raise RuntimeError("a downsampling Bottleneck on the fused "
+                               "epilogue needs prepare_epilogue_bias()")
+        out = _conv_relu_fused(self.conv1, x)
+        out = _conv_relu_fused(self.conv2, out)
+        if self.stride > 1:
+            out = F.avg_pool2d(out, self.stride)
+        identity, bias = x, self.conv3.bias
+        if self.downsample is not None:
+            pool, conv = self.downsample[0], self.downsample[1]
+            identity = F.conv2d(pool(x), conv.weight, None, conv.stride,
+                                conv.padding, conv.dilation, conv.groups)
+            bias = self.residual_bias
+        c3 = self.conv3
+        return torch.cudnn_convolution_add_relu(
+            out, c3.weight, identity, 1.0, bias, c3.stride, c3.padding,
+            c3.dilation, c3.groups)
+
     def forward(self, x):
+        return self.run(x)[0]
+
+    def run(self, x):
+        """(output, the block's convolutions, those that took cuDNN's
+        fused epilogue)."""
+        convs = 3 if self.downsample is None else 4
         if self.fuse and fused_bottleneck_supported(
                 x.shape[2], x.shape[3], x.shape[1], self.conv1.out_channels,
                 x.dtype):
@@ -110,7 +196,10 @@ class Bottleneck(nn.Module):
                                    "weights reach their device and dtype")
             out = fused_identity_bottleneck(x.permute(0, 2, 3, 1),
                                             *self._kernel_weights)
-            return out.permute(0, 3, 1, 2)
+            return out.permute(0, 3, 1, 2), convs, 0
+        if all(_epilogue_admits(conv, x)
+               for conv in (self.conv1, self.conv2, self.conv3)):
+            return self._fused_epilogue(x), convs, convs
         bns = ((None,) * 3 if self.fold_bn
                else (self.bn1, self.bn2, self.bn3))
         out = F.relu(self._plain(self.conv1, bns[0], x))
@@ -119,7 +208,7 @@ class Bottleneck(nn.Module):
             out = F.avg_pool2d(out, self.stride)
         out = self._plain(self.conv3, bns[2], out)
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return F.relu(out + identity), convs, 0
 
 
 class AttentionPool2d(nn.Module):
@@ -191,12 +280,22 @@ class ModifiedResNet(nn.Module):
         x = images.contiguous(memory_format=torch.channels_last)
         bns = ((None,) * 3 if self.fold_bn
                else (self.bn1, self.bn2, self.bn3))
+        convs = fused = 0
         for conv, bn in zip((self.conv1, self.conv2, self.conv3), bns):
+            convs += 1
+            if _epilogue_admits(conv, x):
+                x = _conv_relu_fused(conv, x)
+                fused += 1
+                continue
             x = conv(x)
             x = F.relu(bn(x) if bn is not None else x)
         x = F.avg_pool2d(x, 2)
         for block in self.blocks():
-            x = block(x.contiguous(memory_format=torch.channels_last))
+            x, n, n_fused = block.run(
+                x.contiguous(memory_format=torch.channels_last))
+            convs, fused = convs + n, fused + n_fused
+        count("resnet.convs", convs)
+        count("resnet.fused_convs", fused)
         return self.attnpool(x)
 
 
