@@ -82,9 +82,8 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    operations in torch ops) at the text towers' shapes ([1000, 77, 3 x 512]
    bf16 with the causal mask, [1000, 77, 3 x 768] fp32), at
    ViT-L/14@336px's [64, 577, 3 x 1024] in fp32 and bf16, at ViT-B/16's
-   [256, 197, 3 x 768] and [512, 197, 3 x 768] bf16 (K4b bf16 also beside
-   its two-pass body of before the wgmma redesign, in turns), and untimed
-   at ragged shapes, K4a's tile edges (n = 80, 128) and n = 577 bf16,
+   [256, 197, 3 x 768] and [512, 197, 3 x 768] bf16, and untimed at
+   ragged shapes, K4a's tile edges (n = 80, 128) and n = 577 bf16,
    without a mask, with the causal one and with a general one that kills
    whole key tiles for some rows; K5
    against its plain version at the four RN50 identity shapes at batch 512
@@ -1571,7 +1570,6 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
 
     import numpy as np
 
-    from transductive_clip_tpu_torch.ops import attention_variants as av
     from transductive_clip_tpu_torch.ops import cuda_attention as ca
     from transductive_clip_tpu_torch.utils.synthetic import (
         make_general_attention_mask,
@@ -1620,22 +1618,6 @@ def check_attention(wrapper, b, n, width, heads, dtype, masked, seed,
             f"library_ms {out['library_ms']:.4f} (sdpa rel_diff "
             f"{lib_rel:.3e}) bound_ms {out['bound_ms']:.4f} "
             f"({out['bound_by']}: {ops:.4e} ops, {nbytes:.4e} bytes)")
-        if wrapper is ca.attention_blocked and dtype == torch.bfloat16:
-            # the two-pass body of before the wgmma redesign, in turns with
-            # the kernel (two-pass, kernel, kernel, two-pass)
-            old = [time_ms(lambda: av.two_pass_blocked(qkv, heads, mask),
-                           inner=20)]
-            new = [time_ms(lambda: wrapper(qkv, heads, mask), inner=20)
-                   for _ in range(2)]
-            old.append(time_ms(lambda: av.two_pass_blocked(qkv, heads, mask),
-                               inner=20))
-            _rel_err(f"{name} two-pass body", av.two_pass_blocked(
-                qkv, heads, mask), ref, K4_LIMIT["bfloat16"])
-            out.update(two_pass_ms=statistics.median(old),
-                       ms_turns=new, two_pass_ms_turns=old)
-            log(f"{name}: two-pass body (before the wgmma redesign) ms "
-                f"{old[0]:.4f} / {old[1]:.4f}, kernel {new[0]:.4f} / "
-                f"{new[1]:.4f} in turns")
     del qkv, got, ref
     torch.cuda.empty_cache()
     return out
@@ -1734,11 +1716,10 @@ def run_kernel_checks_clip(records):
                                      "bf16_vitb16_512"))):
             rec["max_abs_err"] = max([rec["max_abs_err"]]
                                      + [rec[k]["max_abs_err"] for k in keys])
-        # the kernels line: K4b bf16 at the three ViT shapes, the kernel's
-        # ms beside the two-pass body's of before its redesign
+        # the kernels line: K4b bf16 at the three ViT shapes
         blocked["bf16"] = {
             label: {k: blocked[key][k] for k in (
-                "ms", "two_pass_ms", "plain_ms", "bound_ms", "bound_by",
+                "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
             for label, key in (("[64, 577, 3 x 1024]", "bf16_vitl336"),
                                ("[256, 197, 3 x 768]", "bf16_vitb16"),
@@ -2958,7 +2939,6 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     try:
-        from transductive_clip_tpu_torch.ops import attention_variants as av
         from transductive_clip_tpu_torch.ops import cuda_attention as ca
         from transductive_clip_tpu_torch.ops import cuda_auction as cau
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
@@ -2987,9 +2967,7 @@ def main():
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
-        # the kernels, and the two-pass K4b bf16 that k4_vs_plain times
-        # beside its redesign
-        kernel_build.build((*kernel_build.SOURCES, av.TWO_PASS))
+        kernel_build.build()
         log(f"kernel build seconds {time.perf_counter() - t0:.3f}")
         for source, text in kernel_build.build_log.items():
             for line in text.splitlines():

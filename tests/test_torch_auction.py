@@ -251,22 +251,6 @@ def test_source_matches_the_wrapper_constants():
     assert "the layout of cuda_auction.smem_bytes" in src
 
 
-def test_auction_variant_sources_apply():
-    """ops/auction_variants.py times edited copies of the kernel source:
-    every substitution still applies, and the zero-shot-shaped batch it
-    times has 4 to 10 non-zero rows a task."""
-    from transductive_clip_tpu_torch.ops import auction_variants as av
-
-    sources = av.variant_sources()
-    assert set(sources) == {"source", "clock", *av.VARIANTS}
-    assert all(text != sources["source"] for name, text in sources.items()
-               if name != "source")
-    values = av.zero_shot_values(n_task=5)
-    rows = (values != 0).any(-1).sum(1)
-    assert values.shape == (5, 75, 1000) and ((rows >= 4) & (rows <= 10)).all()
-    np.testing.assert_allclose(values.sum(-1)[values.any(-1)], 1.0, atol=1e-5)
-
-
 def test_wrapper_takes_the_plain_version_on_cpu(rng):
     values = torch.as_tensor(rng.uniform(0, 1, size=(2, 4, 9))
                              .astype(np.float32))

@@ -358,15 +358,3 @@ def test_kernel_weights_round_trip():
     torch.testing.assert_close(flat[(3 * 2 + 1) * 8 + 5],
                                block.conv2.weight[:, 5, 2, 1])
     torch.testing.assert_close(b3, block.conv3.bias)
-
-
-def test_variant_sources_apply():
-    """ops/bottleneck_variants.py times edited copies of the kernel source:
-    every substitution must still find its text, and change it."""
-    from transductive_clip_tpu_torch.ops import bottleneck_variants as bv
-
-    sources = bv.variant_sources()
-    assert set(sources) == {"source", *bv.VARIANTS}
-    for name in bv.VARIANTS:
-        assert sources[name] != sources["source"]
-        assert "bottleneck_bf16_kernel" in sources[name]

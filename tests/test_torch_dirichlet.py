@@ -488,23 +488,3 @@ def test_special_constants_are_the_correctly_rounded_reciprocals():
     assert "0x00800000u;   // 2^-126 = kNormalLo" in check
     assert "0x53800000u;   // 2^40 = kNormalHi" in check
     assert np.float32(2.0 ** 40).view(np.uint32) == 0x53800000
-
-
-def test_dirichlet_variants_apply_to_their_bases():
-    """Every textual variant of ops/dirichlet_variants.py still applies to
-    its base (the source as it stands, or the first design kept as text),
-    and the first design keeps the launchers its callers bind."""
-    from transductive_clip_tpu_torch.ops import dirichlet_variants as dv
-
-    texts = dv.variant_sources()
-    assert set(texts) == set(dv.VARIANTS)
-    for name, (base, subs, *_) in dv.VARIANTS.items():
-        assert texts[name] != texts[base] or not subs
-        for _, new in subs:
-            assert new in texts[name]
-    first = texts["first"]
-    for fn in ("tclip_dirichlet_row_solve", "tclip_mm_row_solve",
-               "tclip_error_string"):
-        assert 'extern "C"' in first and f"{fn}(" in first
-    assert '#include "special.cuh"' not in first    # self-contained
-    assert "cudaLaunchKernelEx" in texts["source"]

@@ -1161,8 +1161,4 @@ int tclip_attention_blocked(const void* qkv, const float* mask, void* out,
                             static_cast<float*>(out), n, heads, scale);
 }
 
-const char* tclip_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

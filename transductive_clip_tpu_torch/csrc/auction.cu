@@ -42,8 +42,8 @@
 //  2. A bidder scans its leader's row, so a task reads only its distinct
 //     rows again, and the few of a zero-shot task (~7 rows, 28 KB) stay in
 //     L1 beside the state's ~17 KB of shared memory. (Staging them in
-//     shared memory instead read the same: ops/auction_variants.py's
-//     no_staging ablation, PERF.md.)
+//     shared memory instead read the same: the no_staging ablation in
+//     PERF.md.)
 //  3. The rounds run on warp 0 alone, with no barrier (the other warps
 //     are done once the rows are read and grouped). The first bids with
 //     step 1's results; in a later one the warp scans each bidder's row in
@@ -171,7 +171,7 @@ __device__ Top2 scan_row(const float* row, bool vec,
     }
   } else {
     // rolled: one warp alone runs this round after round, and more code is
-    // more for it to fetch (ops/auction_variants.py's scalar_unrolled)
+    // more for it to fetch (the scalar_unrolled ablation in PERF.md)
 #pragma unroll 1
     for (int j = lane; j < n_cols; j += 32)
       push(t, __fsub_rn(__ldg(row + j), price[j]), j);
@@ -508,10 +508,6 @@ auction_kernel(const float* __restrict__ values, int* __restrict__ col4row,
 }
 
 }  // namespace tclip
-
-extern "C" const char* tclip_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // Enqueues the batched auction on `stream` (one CTA of `threads` threads per
 // task, `smem_bytes` of dynamic shared memory from cuda_auction.smem_bytes;

@@ -74,7 +74,7 @@
 //   rows (layer4: 8.9 MB for each of 512 blocks; they fit L2). What holds
 //   the kernel at 5 to 9 times its bound: a block's slice is a chain of
 //   copies, barrier, fragment loads, mma and tile stores, each a similar
-//   share of a launch (ops/bottleneck_variants.py, PERF.md), and shared memory
+//   share of a launch (the ablations in PERF.md), and shared memory
 //   leaves room for one block an SM, so nothing hides one link behind
 //   another; at layer3 and layer4 the 98 and 49 pixels a block owns make it
 //   re-read 2.2 and 8.9 MB of weights from L2.
@@ -981,10 +981,6 @@ int tclip_bottleneck(const void* x, const void* w1, const float* b1,
       tclip::bottleneck_f32_kernel, tclip::kThreads,
       tclip::smem_bytes_f32(W, Cm, R), x, w1, b1, w2, b2, w3, b3, out, B, H, W,
       C, Cm, R, st);
-}
-
-const char* tclip_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -385,60 +385,31 @@ inline int allow_smem(int which, int bytes) {
   return 0;
 }
 
-// A launch of clusters of `ctas` CTAs along x; `attr` must outlive `cfg`.
-inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                           dim3 grid, int ctas, int threads, int smem_bytes,
-                           cudaStream_t stream) {
-  cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = ctas;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-}
-
+// A launch of clusters of `ctas` CTAs along x.
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), int which, int n_task, int n_rows,
            int block_rows, int ctas, int threads, int smem_bytes,
            cudaStream_t stream, Args... args) {
   int rc = allow_smem(which, smem_bytes);
   if (rc != 0) return rc;
-  cudaLaunchConfig_t cfg;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_rows + block_rows - 1) / block_rows * ctas, n_task);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
   cudaLaunchAttribute attr;
-  cluster_config(cfg, attr,
-                 dim3((n_rows + block_rows - 1) / block_rows * ctas, n_task),
-                 ctas, threads, smem_bytes, stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace tclip
-
-// How many clusters of kernel `which` (0: K1, 1: K2) with this geometry
-// the card holds at once (cudaOccupancyMaxActiveClusters) into *out;
-// returns 0 or a cudaError_t.
-extern "C" int tclip_dirichlet_max_clusters(int which, int ctas, int threads,
-                                            int smem_bytes, int* out) {
-  const int rc = tclip::allow_smem(which, smem_bytes);
-  if (rc != 0) return rc;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  tclip::cluster_config(cfg, attr, dim3(ctas * 64), ctas, threads, smem_bytes,
-                        0);
-  const void* kernel = which == 0 ? (const void*)tclip::dirichlet_row_solve_kernel
-                                  : (const void*)tclip::mm_row_solve_kernel;
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
-}
-
-extern "C" const char* tclip_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
 
 // Both launchers take the geometry of launch_geometry() in
 // cuda_dirichlet.py, enqueue on `stream`, never synchronise, and return

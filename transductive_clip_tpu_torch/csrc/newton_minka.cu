@@ -167,10 +167,6 @@ newton_minka_final_kernel(const float* __restrict__ s,
 
 }  // namespace tclip
 
-extern "C" const char* tclip_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 // Both launchers enqueue on `stream`, never synchronise, and return 0 or a
 // cudaError_t. `live` may be null (every row live); `done` is the solve's
 // device flag (one byte).

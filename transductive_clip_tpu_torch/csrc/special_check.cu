@@ -94,7 +94,3 @@ extern "C" int tclip_special_check(int which, unsigned long long* bad,
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-extern "C" const char* tclip_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

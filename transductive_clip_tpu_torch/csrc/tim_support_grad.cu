@@ -694,10 +694,6 @@ int launch(const void* x, const int* y, const float* w, float* gs_x,
 
 }  // namespace tclip
 
-extern "C" const char* tclip_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 // Enqueues the four passes on `stream`, never synchronises, and returns
 // cudaGetLastError() (0 on success). x [N, s, dp] is __nv_bfloat16 when
 // bf16 != 0, else float, zero past d; dp is d rounded up to a 16-byte row

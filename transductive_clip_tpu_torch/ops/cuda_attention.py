@@ -50,8 +50,6 @@ operations in torch ops for the CPU tests.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -59,6 +57,9 @@ import torch
 from . import kernel_build
 
 SOURCE = "attention.cu"
+#: the entry points' C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_attention_rows": "ppp iii f i p",
+              "tclip_attention_blocked": "ppp iii f i p"}
 HEAD_DIM = 64
 WARP_ROWS = 16     # q rows of a warp (csrc kWarpRows)
 KEYS = 64          # rows of a k / v tile (csrc kKeys)
@@ -76,26 +77,6 @@ PITCH_P = 72       # fp32 row pitch of the p strips (csrc kPitchP)
 # shared memory a block can use on an H100 (232,448 bytes of the SM's 256 KB)
 SMEM_LIMIT = 232448
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-def bind(lib):
-    """``lib`` with the argument types of the attention entries it has."""
-    for name in ("tclip_attention_rows", "tclip_attention_blocked"):
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = [_P, _P, _P, _I, _I, _I, _F, _I, _P]
-            getattr(lib, name).restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    return bind(kernel_build.load(SOURCE))
 
 
 def rows_smem_bytes(n: int, dtype) -> int:
@@ -241,9 +222,8 @@ def fused_attention_tiled_reference(qkv, heads: int, mask=None):
     return (o / l).to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, width)
 
 
-def _launch(entry, qkv, heads, mask, lib=None):
-    """Checks, allocates and launches (from ``lib``, a library bound by
-    :func:`bind`; this module's own by default)."""
+def _launch(entry, qkv, heads, mask):
+    """Checks, allocates and launches."""
     b, n, width = _split(qkv, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"{entry}: qkv is on {qkv.device}; the kernel takes "
@@ -260,17 +240,11 @@ def _launch(entry, qkv, heads, mask, lib=None):
         raise ValueError(f"{entry}: qkv must be aligned to 16 bytes (the "
                          "kernels copy 16 bytes at a time)")
     out = torch.empty((b, n, width), dtype=qkv.dtype, device=qkv.device)
-    lib = lib or _library()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            qkv.data_ptr(), m.data_ptr() if m is not None else None,
-            out.data_ptr(), b, n, heads, float((width // heads) ** -0.5),
-            int(qkv.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        msg = lib.tclip_error_string(rc).decode()
-        raise RuntimeError(f"{entry}: kernel launch failed: {msg} "
-                           f"(cuda error {rc})")
+    kernel_build.launch(
+        getattr(kernel_build.load(SOURCE, SIGNATURES), entry), qkv.device,
+        qkv.data_ptr(), m.data_ptr() if m is not None else None,
+        out.data_ptr(), b, n, heads, float((width // heads) ** -0.5),
+        int(qkv.dtype == torch.bfloat16))
     return out
 
 

@@ -17,23 +17,19 @@ then; for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from . import kernel_build
 from .auction import auction_assign_reference
 
 SOURCE = "auction.cu"
+#: the entry point's C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_auction": "pppp iii f iii p"}
 # threads of a task's CTA: 16 warps read and group the rows, then warp 0
 # runs the rounds (at most the source's __launch_bounds__, 512)
 THREADS = 512
 # dynamic shared memory a CTA may take (227 KB)
 SMEM_MAX = 232448
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def smem_bytes(n_rows: int, n_cols: int) -> int:
@@ -46,17 +42,6 @@ def smem_bytes(n_rows: int, n_cols: int) -> int:
 def max_objects(n_rows: int) -> int:
     """The largest C whose state fits a CTA's shared memory at ``n_rows``."""
     return max(0, (SMEM_MAX - smem_bytes(n_rows, 0)) // 16)
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    lib.tclip_auction.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                  ctypes.c_float, _I, _I, _I, _P]
-    lib.tclip_auction.restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def auction_assign(values, eps: float = 1e-5, max_iters: int = 200_000,
@@ -89,17 +74,11 @@ def auction_assign(values, eps: float = 1e-5, max_iters: int = 200_000,
     rounds = torch.empty(n, dtype=torch.int32, device=values.device)
     scans = (torch.empty(n, dtype=torch.int32, device=values.device)
              if return_scans else None)
-    lib = _library()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tclip_auction(
-            values.data_ptr(), col4row.data_ptr(), rounds.data_ptr(),
-            None if scans is None else scans.data_ptr(), n, r, c, eps,
-            int(max_iters), THREADS, smem_bytes(r, c), stream)
-    if rc != 0:
-        msg = lib.tclip_error_string(rc).decode()
-        raise RuntimeError(f"auction_assign: kernel launch failed: {msg} "
-                           f"(cuda error {rc})")
+    kernel_build.launch(
+        kernel_build.load(SOURCE, SIGNATURES).tclip_auction, values.device,
+        values.data_ptr(), col4row.data_ptr(), rounds.data_ptr(),
+        None if scans is None else scans.data_ptr(), n, r, c, eps,
+        int(max_iters), THREADS, smem_bytes(r, c))
     auction_assign.launches += 1
     out = ((col4row,) + ((rounds,) if return_rounds else ())
            + ((scans,) if return_scans else ()))

@@ -34,15 +34,14 @@ sums inside a slice, and the fp32 kernel's split groups, it does not model.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from . import kernel_build
 
 SOURCE = "bottleneck.cu"
+#: the entry point's C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_bottleneck": "pppppppp iiiiiii p"}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # csrc, bf16: a ring of STAGES slices DEPTH deep, each an A slice of up to
 # 256 rows (pitch DEPTH + PAD) and a weight slice of 64 columns (the wider
@@ -61,19 +60,6 @@ _STAGE_BYTES_F32 = 4 * DEPTH_F32 * RING_COLS_F32
 _X_RING_BYTES_F32 = STAGES * 4 * ROWS_F32 * (DEPTH_F32 + 4)
 # a block's shared memory (kSmemMax): one block an SM in both dtypes
 SMEM_BUDGET = 227 * 1024
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    lib.tclip_bottleneck.argtypes = [_P] * 8 + [_I] * 7 + [_P]
-    lib.tclip_bottleneck.restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def padded_channels(c_mid: int, unit: int = CHAN_UNIT) -> int:
@@ -187,18 +173,11 @@ def fused_identity_bottleneck(x, w1, b1, w2, b2, w3, b3):
     rows = _check(x, w1, b1, w2, b2, w3, b3)
     bsz, h, w, c = x.shape
     out = torch.empty_like(x)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tclip_bottleneck(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, w1.shape[1], rows, int(x.dtype == torch.bfloat16),
-            stream)
-    if rc != 0:
-        msg = lib.tclip_error_string(rc).decode()
-        raise RuntimeError(f"fused_identity_bottleneck: kernel launch "
-                           f"failed: {msg} (cuda error {rc})")
+    kernel_build.launch(
+        kernel_build.load(SOURCE, SIGNATURES).tclip_bottleneck, x.device,
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        bsz, h, w, c, w1.shape[1], rows, int(x.dtype == torch.bfloat16))
     fused_identity_bottleneck.launches += 1
     return out
 

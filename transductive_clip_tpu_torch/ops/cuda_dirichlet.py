@@ -26,9 +26,6 @@ against them on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from . import kernel_build
@@ -41,10 +38,9 @@ from .special import digamma_pos, inv_digamma, lgamma_pos
 # empty-cluster fill is -10, so a positive value cannot occur naturally.
 ROW_FREEZE = 1.0
 SOURCE = "dirichlet_solve.cu"
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
+#: the entry points' C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_dirichlet_row_solve": "ppp iiiiiiiii f i p",
+              "tclip_mm_row_solve": "ppp iiiiiiiii f i p"}
 
 
 def _round_up(x, m):
@@ -129,18 +125,6 @@ def deal_rows(live, ctas: int = CLUSTER_CTAS):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    args = [_P, _P, _P] + [_I] * 9 + [_F, _I, _P]
-    for fn in ("tclip_dirichlet_row_solve", "tclip_mm_row_solve"):
-        getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _on_cpu(alpha0, y_cst) -> bool:
     return alpha0.device.type == "cpu" and y_cst.device.type == "cpu"
 
@@ -174,20 +158,15 @@ def _check_inputs(name, alpha0, y_cst, block_rows=128):
                          "rows")
 
 
-def _launch(name, fn, alpha0, y_cst, block_rows, *args):
+def _launch(entry, alpha0, y_cst, block_rows, *args):
     out = torch.empty_like(alpha0)
     n, r, k = alpha0.shape
     g = launch_geometry(r, k, block_rows)
-    lib = _library()
-    with torch.cuda.device(alpha0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(alpha0.data_ptr(), y_cst.data_ptr(),
-                              out.data_ptr(), n, r, k, g["block_rows"],
-                              g["ctas"], g["threads"], g["rows_per_cta"],
-                              g["smem_bytes"], *args, stream)
-    if rc != 0:
-        msg = lib.tclip_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} (cuda error {rc})")
+    kernel_build.launch(
+        getattr(kernel_build.load(SOURCE, SIGNATURES), entry), alpha0.device,
+        alpha0.data_ptr(), y_cst.data_ptr(), out.data_ptr(), n, r, k,
+        g["block_rows"], g["ctas"], g["threads"], g["rows_per_cta"],
+        g["smem_bytes"], *args)
     return out
 
 
@@ -200,8 +179,8 @@ def dirichlet_row_solve(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
             alpha0, y_cst, max_iters=max_iters, tol=tol,
             newton_iters=newton_iters, block_rows=block_rows)
     _check_inputs("dirichlet_row_solve", alpha0, y_cst, block_rows)
-    out = _launch("dirichlet_row_solve", "tclip_dirichlet_row_solve", alpha0,
-                  y_cst, block_rows, max_iters, tol, newton_iters)
+    out = _launch("tclip_dirichlet_row_solve", alpha0, y_cst, block_rows,
+                  max_iters, tol, newton_iters)
     dirichlet_row_solve.launches += 1
     return out
 
@@ -218,8 +197,8 @@ def mm_row_solve(alpha0, y_cst, iter_mm: int = 1000, tol: float = 1e-11,
             alpha0, y_cst, iter_mm=iter_mm, tol=tol, check_every=check_every,
             block_rows=block_rows)
     _check_inputs("mm_row_solve", alpha0, y_cst, block_rows)
-    out = _launch("mm_row_solve", "tclip_mm_row_solve", alpha0, y_cst,
-                  block_rows, iter_mm, tol, check_every)
+    out = _launch("tclip_mm_row_solve", alpha0, y_cst, block_rows, iter_mm,
+                  tol, check_every)
     mm_row_solve.launches += 1
     return out
 

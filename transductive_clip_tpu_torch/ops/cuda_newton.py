@@ -22,14 +22,14 @@ them, so the solve on the CPU is one arithmetic with its twin.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from . import dirichlet, kernel_build
 
 SOURCE = "newton_minka.cu"
+#: the entry points' C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_newton_minka_step": "pppppp iiiiii p",
+              "tclip_newton_minka_final": "ppppp iiii p"}
 
 # Launch geometry, mirrored by the constants of csrc/newton_minka.cu
 # (tests/test_torch_newton_kernel.py holds the two against each other).
@@ -37,9 +37,6 @@ MAX_CTAS = 8       # CTAs of a task's cluster: the portable cluster size
 MAX_WARPS = 32     # warps of a CTA
 MIN_WARPS = 4
 MAX_TASKS = 65535  # the grid's y extent
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def launch_geometry(n_rows: int) -> dict:
@@ -52,18 +49,6 @@ def launch_geometry(n_rows: int) -> dict:
     warps = min(MAX_WARPS, max(MIN_WARPS, -(-n_rows // 32)))
     ctas = max(1, min(MAX_CTAS, -(-n_rows // warps)))
     return {"ctas": ctas, "warps": warps}
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    lib.tclip_newton_minka_step.argtypes = [_P] * 6 + [_I] * 6 + [_P]
-    lib.tclip_newton_minka_step.restype = _I
-    lib.tclip_newton_minka_final.argtypes = [_P] * 5 + [_I] * 4 + [_P]
-    lib.tclip_newton_minka_final.restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _on_cpu(*tensors) -> bool:
@@ -106,13 +91,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(name, rc):
-    if rc != 0:
-        msg = _library().tclip_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} (cuda error "
-                           f"{rc})")
-
-
 def newton_minka_step(s, y, live, done, newton_iters: int = 3, out=None):
     """One Newton-Minka step of every row: (s_next [N, R], sums [N, 2]),
     sums[:, 0] = num and sums[:, 1] = den, each task's criterion sums.
@@ -130,11 +108,11 @@ def newton_minka_step(s, y, live, done, newton_iters: int = 3, out=None):
     sums = torch.empty((n, 2), dtype=torch.float32, device=y.device)
     if n > 0:
         g = launch_geometry(r)
-        rc = _library().tclip_newton_minka_step(
-            s.data_ptr(), y.data_ptr(), _ptr(live), done.data_ptr(),
-            out.data_ptr(), sums.data_ptr(), n, r, k, g["ctas"], g["warps"],
-            newton_iters, torch.cuda.current_stream(y.device).cuda_stream)
-        _raise_on("newton_minka_step", rc)
+        kernel_build.launch(
+            kernel_build.load(SOURCE, SIGNATURES).tclip_newton_minka_step,
+            y.device, s.data_ptr(), y.data_ptr(), _ptr(live),
+            done.data_ptr(), out.data_ptr(), sums.data_ptr(), n, r, k,
+            g["ctas"], g["warps"], newton_iters)
         newton_minka_step.launches += 1
     return out, sums
 
@@ -151,11 +129,10 @@ def newton_minka_final(s, y, alpha0, live, newton_iters: int = 3):
     out = torch.empty_like(y)
     n, r, k = y.shape
     if n > 0:
-        rc = _library().tclip_newton_minka_final(
-            s.data_ptr(), y.data_ptr(), alpha0.data_ptr(), _ptr(live),
-            out.data_ptr(), n, r, k, newton_iters,
-            torch.cuda.current_stream(y.device).cuda_stream)
-        _raise_on("newton_minka_final", rc)
+        kernel_build.launch(
+            kernel_build.load(SOURCE, SIGNATURES).tclip_newton_minka_final,
+            y.device, s.data_ptr(), y.data_ptr(), alpha0.data_ptr(),
+            _ptr(live), out.data_ptr(), n, r, k, newton_iters)
         newton_minka_final.launches += 1
     return out
 

@@ -27,8 +27,6 @@ contractions slice by slice), for the CPU tests.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -37,6 +35,8 @@ from . import kernel_build
 from .common import TIM_EPS, get_one_hot
 
 SOURCE = "tim_support_grad.cu"
+#: the entry point's C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_tim_support_grad": "ppppppppp iiiiii fff ii p"}
 LOG_TIM_EPS = math.log(TIM_EPS)
 
 #: csrc constants: a block's output tile, the slices of the ring, and their
@@ -47,21 +47,6 @@ PITCH_K = {"default": 72, "highest": 20}      # [128][pitch], first product
 PITCH_M = {"default": 136, "highest": 132}    # [depth][pitch], second product
 #: K is padded to this many columns in the logits and G scratch
 K_UNIT = 8
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = kernel_build.load(SOURCE)
-    lib.tclip_tim_support_grad.argtypes = [_P] * 9 + [_I] * 6 + [_F] * 3 + [
-        _I, _I, _P]
-    lib.tclip_tim_support_grad.restype = _I
-    lib.tclip_error_string.argtypes = [_I]
-    lib.tclip_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _x_dtype(precision: str):
@@ -165,20 +150,14 @@ def tim_support_grad(x_p, y_p, weights, temp, scale, alpha_value,
         g_bf16 = torch.empty((n, s, kp), dtype=torch.bfloat16, device=dev)
     if bf16 or dp != d:
         w_prep = torch.empty((n, k, dp), dtype=x_p.dtype, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tclip_tim_support_grad(
-            x_p.data_ptr(), y_p.data_ptr(), weights.data_ptr(),
-            gs_x.data_ptr(), col.data_ptr(), logits.data_ptr(),
-            None if g_bf16 is None else g_bf16.data_ptr(),
-            None if w_prep is None else w_prep.data_ptr(), w2.data_ptr(),
-            n, s, k, d, dp, kp, float(temp), float(scale),
-            float(alpha_value), int(ce_kind != "Shannon"), int(bf16), stream)
-    if rc != 0:
-        msg = lib.tclip_error_string(rc).decode()
-        raise RuntimeError(f"tim_support_grad: kernel launch failed: {msg} "
-                           f"(cuda error {rc})")
+    kernel_build.launch(
+        kernel_build.load(SOURCE, SIGNATURES).tclip_tim_support_grad, dev,
+        x_p.data_ptr(), y_p.data_ptr(), weights.data_ptr(), gs_x.data_ptr(),
+        col.data_ptr(), logits.data_ptr(),
+        None if g_bf16 is None else g_bf16.data_ptr(),
+        None if w_prep is None else w_prep.data_ptr(), w2.data_ptr(),
+        n, s, k, d, dp, kp, float(temp), float(scale), float(alpha_value),
+        int(ce_kind != "Shannon"), int(bf16))
     tim_support_grad.launches += 1
     return gs_x, col
 

@@ -174,7 +174,7 @@ def minka_update_alpha(alpha0, y_cst, max_iters: int = 60, tol: float = 1e-11,
 # larger interval makes fewer syncs and runs up to NEWTON_CHECK_EVERY - 1
 # steps past the stop. Chosen by the wall clock of a whole zero-shot `auto`
 # evaluation, first batch and steady ones
-# (``dirichlet_variants --newton-reads``; PERF.md)
+# (the readings by interval are in PERF.md)
 NEWTON_CHECK_EVERY = 4
 
 

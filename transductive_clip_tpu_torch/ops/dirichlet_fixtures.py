@@ -1,15 +1,12 @@
 """Inputs and checks for the Dirichlet row-solve kernels K1 and K2
 (``cuda_dirichlet``) and the Newton-Minka step (``cuda_newton``), shared by
-``chip_smoke.py``, the tests and ``dirichlet_variants``: the EM step's
-inputs at a given shape, the edge cases of the cluster design, and the
-bit-for-bit check of ``special.cuh``'s fast paths
-(``csrc/special_check.cu``). Nothing of the port's solve path imports this
-module.
+``chip_smoke.py`` and the tests: the EM step's inputs at a given shape, the
+edge cases of the cluster design, and the bit-for-bit check of
+``special.cuh``'s fast paths (``csrc/special_check.cu``). Nothing of the
+port's solve path imports this module.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -94,6 +91,9 @@ def newton_solve_inputs(n_task, n_rows, k, seed, device="cuda"):
 #: csrc/special_check.cu's checks, by its ``which`` index
 FAST_PATH_CHECKS = ("rcp", "div_252", "div_42", "div_1260", "log",
                     "digamma_trigamma_series", "digamma_lgamma_series")
+SOURCE = "special_check.cu"
+#: the entry point's C arguments (``kernel_build.ARG_TYPES``)
+SIGNATURES = {"tclip_special_check": "i p p"}
 
 
 def check_fast_paths(device="cuda") -> dict:
@@ -102,20 +102,10 @@ def check_fast_paths(device="cuda") -> dict:
     (csrc/special_check.cu; every float of each domain, ~10^10 evaluations
     in all). All zeros is what the kernels' parity with their plain
     versions rests on."""
-    lib = kernel_build.load("special_check.cu")
-    lib.tclip_special_check.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                        ctypes.c_void_p]
-    lib.tclip_special_check.restype = ctypes.c_int
-    lib.tclip_error_string.argtypes = [ctypes.c_int]
-    lib.tclip_error_string.restype = ctypes.c_char_p
+    entry = kernel_build.load(SOURCE, SIGNATURES).tclip_special_check
     out = {}
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for which, name in enumerate(FAST_PATH_CHECKS):
-            bad = torch.zeros(1, dtype=torch.int64, device=device)
-            rc = lib.tclip_special_check(which, bad.data_ptr(), stream)
-            if rc != 0:
-                msg = lib.tclip_error_string(rc).decode()
-                raise RuntimeError(f"special_check {name}: {msg}")
-            out[name] = int(bad.item())
+    for which, name in enumerate(FAST_PATH_CHECKS):
+        bad = torch.zeros(1, dtype=torch.int64, device=device)
+        kernel_build.launch(entry, bad.device, which, bad.data_ptr())
+        out[name] = int(bad.item())
     return out

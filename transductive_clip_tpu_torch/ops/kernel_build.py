@@ -1,4 +1,4 @@
-"""Build and load the port's native libraries.
+"""Build, load, bind and launch the port's native libraries.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
@@ -8,6 +8,11 @@ an unchanged one is reused. ``build`` starts one ``nvcc`` per missing source,
 all at once. ``host_library`` does the same for a C++ source of the host
 (``native/lapjv.cpp``) with ``g++``. Nothing here runs when the module is
 imported.
+
+Every kernel wrapper (``ops/cuda_*.py``) goes through one seam: it declares
+its entry points' C arguments in a signature table, ``load`` binds them once
+a source, and ``launch`` calls one on the current stream of a tensor's
+device and raises on the CUDA error it returns.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -125,11 +132,47 @@ def host_library(source: Path) -> Path:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library built from ``source`` (built first if missing)."""
+#: the letters of a signature table: a pointer (a tensor's ``data_ptr()``,
+#: None or the stream), a C int, a C float; spaces only group them
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def load(source: str, signatures: dict) -> ctypes.CDLL:
+    """The library built from ``source`` (built first if missing), each
+    entry point of ``signatures`` bound: name -> its C arguments in
+    ``ARG_TYPES`` letters, the stream last; every entry point returns an
+    int, 0 or a ``cudaError_t``. Loaded and bound once a source."""
     lib = _loaded.get(source)
     if lib is None:
         build((source,))
         lib = ctypes.CDLL(str(library_path(source)))
+        for name, letters in signatures.items():
+            entry = getattr(lib, name)
+            entry.argtypes = [ARG_TYPES[c] for c in letters.replace(" ", "")]
+            entry.restype = ctypes.c_int
         _loaded[source] = lib
     return lib
+
+
+def error_string(code: int) -> str:
+    """The CUDA runtime's text for the ``cudaError_t`` ``code``."""
+    cudart = torch.cuda.cudart()
+    return cudart.cudaGetErrorString(cudart.cudaError(code))
+
+
+def launch(entry, device: torch.device, *args) -> None:
+    """Calls the bound entry point ``entry(*args, stream)`` with the
+    current stream of CUDA ``device``, inside that device's context when
+    another device is current; raises RuntimeError naming the entry point
+    and the CUDA error when it returns non-zero. Adds no host work beyond
+    the current-device check and the stream lookup: the Newton-Minka step
+    calls this hundreds of times a zero-shot batch."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = entry(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__}: kernel launch failed: "
+                           f"{error_string(rc)} (cuda error {rc})")
