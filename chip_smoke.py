@@ -94,7 +94,12 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    rows off 16 bytes); max difference over the output's magnitude
    under K4_LIMIT / K5_LIMIT; kernel, plain and (for K4)
    scaled_dot_product_attention times beside the bound (K4: 20 calls queued
-   in each timed window, the time of a lone call beside);
+   in each timed window, the time of a lone call beside); the average-pool
+   kernel (csrc/avg_pool.cu) bit-equal to F.avg_pool2d at the seven RN50
+   pool shapes at batch 512 in bf16, fp16 and fp32, timed in bf16 (ten
+   calls queued a timed window) beside its bytes bound and F.avg_pool2d,
+   and untimed at odd sizes, window 3, channels off 16 bytes, an NCHW
+   input and a pointer off 16 bytes (avg_pool_vs_library);
 8. CLIP extraction with RN50 (bf16, ``fused_resnet=True``: K5 on the 12
    identity blocks of every batch, K4a in the text tower) at full width on
    random weights written as an OpenAI checkpoint, over a EuroSAT-shaped
@@ -109,10 +114,12 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    route and through the model's own plain route (``fused_resnet`` off:
    cuDNN's bf16 convolutions); the image tower's route named, with its
    counters ``resnet.convs`` and ``resnet.fused_convs`` (the convolutions
-   whose bias, ReLU and residual add ran in cuDNN's fused epilogue) on
-   each route; a torch.profiler breakdown of one steady
-   batch; then RN50 under float32 (``fused_resnet=True``: K5's fp32 kernel
-   on the 12 identity blocks of every batch, K4a in the text tower) over
+   whose bias, ReLU and residual add ran in cuDNN's fused epilogue) and
+   ``resnet.kernel_pools`` of ``resnet.pools`` (all 7 in the pool kernel)
+   on each route, and the pool kernel's 7 launches a batch; a
+   torch.profiler breakdown of one steady batch; then RN50 under float32
+   (``fused_resnet=True``: K5's fp32 kernel on the 12 identity blocks of
+   every batch, the pool kernel's 7 launches, K4a in the text tower) over
    every 32nd image of that split (254 images, cut from 8100), batches of
    64, to its own T = 30 cache, one batch's features held against the plain
    route (cuDNN's fp32 convolutions, TF32 off) under 1e-4, and one batch
@@ -294,6 +301,16 @@ VIT_EVERY, VIT_BATCH = 32, 64
 # is not in the repository)
 BPE_MERGES = ("#version: 0.2", "c a", "ca t</w>", "d o", "do g</w>",
               "a t</w>")
+# RN50's average pools of a window above 1, [C, H, W] of each input: the
+# stem's, then each strided block's main path and shortcut
+RN50_POOLS = {"stem": (64, 112, 112),
+              "layer2_main": (128, 56, 56), "layer2_shortcut": (256, 56, 56),
+              "layer3_main": (256, 28, 28), "layer3_shortcut": (512, 28, 28),
+              "layer4_main": (512, 14, 14), "layer4_shortcut": (1024, 14, 14)}
+# the pool kernel off its 16-byte path, untimed, [N, C, H, W] and window:
+# odd sizes (floor mode), window 3, channels of 40 and 12 bytes
+POOL_EDGES = (((3, 64, 15, 13), 2), ((3, 64, 15, 13), 3),
+              ((3, 20, 14, 14), 2), ((2, 3, 9, 9), 2))
 # RN50's identity bottlenecks: ([H, W, C], Cm) and launches a batch
 RN50_IDENTITY = (((56, 56, 256), 64, 2), ((28, 28, 512), 128, 3),
                  ((14, 14, 1024), 256, 5), ((7, 7, 2048), 512, 2))
@@ -1673,6 +1690,84 @@ def check_bottleneck(b, h, w, c, c_mid, dtype, seed, timing):
     return out
 
 
+def run_avg_pool_checks(records):
+    """Phase avg_pool_vs_library: the pool kernel (csrc/avg_pool.cu)
+    against F.avg_pool2d, its plain version and PyTorch's own call, at the
+    seven RN50 pool shapes at batch 512: bit-equal in bf16, fp16 and fp32,
+    bf16 timed (ten calls queued a timed window) beside the bytes bound
+    (input read once, output written once) and F.avg_pool2d's time; then
+    untimed at POOL_EDGES, on an NCHW input and from a pointer off 16
+    bytes. Runs alone: ``python3 -c "import chip_smoke as c;
+    c.run_avg_pool_checks({})"``."""
+    import torch
+    import torch.nn.functional as F
+
+    from transductive_clip_tpu_torch.ops.cuda_pool import avg_pool_nhwc
+
+    def check(x, window, name):
+        got = avg_pool_nhwc(x, window)
+        want = F.avg_pool2d(x, window)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs().max().item()
+            fail(f"avg_pool_nhwc {name}: not bit-equal to F.avg_pool2d "
+                 f"(max |difference| {diff:.3e})")
+        return got
+
+    with Phase("avg_pool_vs_library"):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+               "per_shape": []}
+        for pool, (c, h, w) in RN50_POOLS.items():
+            shape = (EXTRACT_BATCH, c, h, w)
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                x = torch.randn(shape, generator=g, device="cuda").to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+                got = check(x, 2, f"{pool} {list(shape)} {str(dtype)[6:]}")
+            nbytes = (x.numel() + got.numel()) * x.element_size()
+            one = {"pool": pool, "shape": list(shape),
+                   "ms": time_ms(lambda: avg_pool_nhwc(x, 2), inner=10),
+                   "library_ms": time_ms(lambda: F.avg_pool2d(x, 2),
+                                         inner=10),
+                   "bytes": nbytes, **_bound(0, nbytes, PEAK_BF16_S)}
+            one["bound_share"] = one["bound_ms"] / one["ms"]
+            log(f"avg_pool_nhwc {pool} {list(shape)} bf16: ms "
+                f"{one['ms']:.4f} bound_ms {one['bound_ms']:.4f} (bytes "
+                f"{nbytes:.4e}; {100 * one['bound_share']:.1f}% of the "
+                f"bound) library_ms (F.avg_pool2d) {one['library_ms']:.4f}")
+            for key in ("ms", "library_ms", "bound_ms"):
+                rec[key] += one[key]
+            rec["per_shape"].append(one)
+            del x, got
+            torch.cuda.empty_cache()
+        # F.avg_pool2d is the plain version and PyTorch's own call
+        rec["plain_ms"] = rec["library_ms"]
+        rec["bound_share_min"] = min(o["bound_share"]
+                                     for o in rec["per_shape"])
+        log(f"avg_pool_nhwc, the seven RN50 pools of a batch of "
+            f"{EXTRACT_BATCH} bf16: ms {rec['ms']:.4f} bound_ms "
+            f"{rec['bound_ms']:.4f} library_ms {rec['library_ms']:.4f}; "
+            f"least share of a shape's bound "
+            f"{100 * rec['bound_share_min']:.1f}%")
+        for (shape, window) in POOL_EDGES:
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                x = torch.randn(shape, generator=g, device="cuda").to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+                check(x, window, f"{list(shape)} window {window} "
+                      f"{str(dtype)[6:]}")
+                check(x.contiguous(), window, f"{list(shape)} window "
+                      f"{window} {str(dtype)[6:]} NCHW")
+        n, c, h, w = 2, 64, 10, 10
+        flat = torch.randn(n * h * w * c + 1, generator=g, device="cuda").to(
+            torch.bfloat16)
+        check(flat[1:].view(n, h, w, c).permute(0, 3, 1, 2), 2,
+              "[2, 64, 10, 10] bf16 off 16 bytes")
+        log(f"avg_pool_nhwc: bit-equal to F.avg_pool2d at {len(POOL_EDGES)} "
+            "edge shapes in three dtypes, NCHW and off 16 bytes")
+        records["avg_pool_nhwc"] = rec
+
+
 def run_kernel_checks_clip(records):
     """Phases k4_vs_plain and k5_vs_plain."""
     import torch
@@ -1841,7 +1936,8 @@ def attention_probes(model):
 def compare_routes(label, model, images, prompts, counters):
     """One batch's and the prompts' normalized features, kernel route vs
     plain route, under FEATURE_LIMIT[label]; the kernel route must launch
-    kernels and the plain route none. The features alone can hide the
+    kernels and the plain route none (the pool kernel, which every ResNet
+    route takes, aside). The features alone can hide the
     attention kernels (with random weights an attention output is small
     beside the residual stream), so the outputs of the first and the last
     attention module of each transformer tower are compared between the
@@ -1849,6 +1945,9 @@ def compare_routes(label, model, images, prompts, counters):
     import torch
 
     probes = attention_probes(model)
+    # the pool kernel runs on both routes: every ResNet pool takes it
+    route_kernels = [w for name, w in counters.items()
+                     if name != "avg_pool_nhwc"]
 
     def both():
         seen = {}
@@ -1856,10 +1955,10 @@ def compare_routes(label, model, images, prompts, counters):
             lambda _m, _in, out, name=name: seen.__setitem__(
                 name, out.detach().clone()))
             for name, m in probes.items()]
-        before = sum(w.launches for w in counters.values())
+        before = sum(w.launches for w in route_kernels)
         img = model.encode_image_batch(images)
         txt = model.encode_text_prompts(prompts)
-        launched = sum(w.launches for w in counters.values()) - before
+        launched = sum(w.launches for w in route_kernels) - before
         for h in hooks:
             h.remove()
         return ([t / t.norm(dim=-1, keepdim=True) for t in (img, txt)],
@@ -1917,7 +2016,9 @@ def resnet_route(label, model, images, fp32):
     on the model's own plain route (``fused_resnet`` off), from the
     counters ``resnet.convs`` and ``resnet.fused_convs`` of one forward
     each: bf16 has to run some convolutions on cuDNN's fused epilogue,
-    fp32 none. Returns the fused count of each route."""
+    fp32 none; and ``resnet.kernel_pools`` of ``resnet.pools``: every one
+    of the 7 pools in the pool kernel, on both routes and in both dtypes.
+    Returns the fused count of each route."""
     from transductive_clip_tpu_torch.core.profiling import PhaseTimer
 
     got = {}
@@ -1928,11 +2029,17 @@ def resnet_route(label, model, images, fp32):
             model.encode_image_batch(images)
         convs = int(timer.totals["resnet.convs"])
         fused = int(timer.totals["resnet.fused_convs"])
+        pools = int(timer.totals["resnet.pools"])
+        kernel_pools = int(timer.totals["resnet.kernel_pools"])
         k5 = sum(1 for b in model.fused_blocks if b.fuse) * 3
         name = ("cuDNN fused epilogue" if fused else "plain graph") + (
             f", K5 on {k5 // 3} identity blocks" if k5 else "")
         log(f"{label} image tower, {route}: {name}; resnet.fused_convs "
-            f"{fused} of resnet.convs {convs}")
+            f"{fused} of resnet.convs {convs}; resnet.kernel_pools "
+            f"{kernel_pools} of resnet.pools {pools}")
+        if kernel_pools != pools or pools != len(RN50_POOLS):
+            fail(f"{label}: {kernel_pools} of {pools} pools in the pool "
+                 f"kernel, not all {len(RN50_POOLS)}")
         if (fused == 0) != fp32:
             fail(f"{label}: {fused} convolutions of {convs} on the fused "
                  f"epilogue ({'fp32 takes none' if fp32 else 'bf16 takes some'})")
@@ -2125,8 +2232,13 @@ def run_extraction(root, counters, records, launches):
                 or got["attention_blocked"] != 0):
             fail(f"RN50 extraction launched {got}, not K5 12 a batch "
                  f"({12 * n_batches}) and K4a 12 (one text batch)")
+        if got["avg_pool_nhwc"] != len(RN50_POOLS) * n_batches:
+            fail(f"RN50 extraction launched the pool kernel "
+                 f"{got['avg_pool_nhwc']} times, not {len(RN50_POOLS)} a "
+                 f"batch ({len(RN50_POOLS) * n_batches})")
         launches["fused_identity_bottleneck"] = got["fused_identity_bottleneck"]
         launches["attention_rows"] = got["attention_rows"]
+        launches["avg_pool_nhwc"] = got["avg_pool_nhwc"]
         feats, _ = load_feature_cache(path)
         if feats.shape != (EUROSAT_TEST, len(EUROSAT_CLASSES)) or not (
                 np.isfinite(feats).all()
@@ -2167,6 +2279,11 @@ def run_extraction(root, counters, records, launches):
                  f"({12 * n_batches}) and K4a 12 (one text batch)")
         records["fused_identity_bottleneck"]["fp32_path_launches"] = got[
             "fused_identity_bottleneck"]
+        if got["avg_pool_nhwc"] != len(RN50_POOLS) * n_batches:
+            fail(f"RN50 fp32 extraction launched the pool kernel "
+                 f"{got['avg_pool_nhwc']} times, not {len(RN50_POOLS)} a "
+                 f"batch ({len(RN50_POOLS) * n_batches})")
+        records["avg_pool_nhwc"]["fp32_path_launches"] = got["avg_pool_nhwc"]
         feats, _ = load_feature_cache(path)
         if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
                 np.isfinite(feats).all()
@@ -2367,6 +2484,7 @@ def _kernel_counters():
     from transductive_clip_tpu_torch.ops import cuda_auction as cau
     from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
     from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+    from transductive_clip_tpu_torch.ops import cuda_pool as cp
     from transductive_clip_tpu_torch.ops import cuda_tim as ct
 
     return {"dirichlet_row_solve": cd.dirichlet_row_solve,
@@ -2375,7 +2493,8 @@ def _kernel_counters():
             "attention_rows": ca.attention_rows,
             "attention_blocked": ca.attention_blocked,
             "fused_identity_bottleneck": cb.fused_identity_bottleneck,
-            "auction_assign": cau.auction_assign}
+            "auction_assign": cau.auction_assign,
+            "avg_pool_nhwc": cp.avg_pool_nhwc}
 
 
 def _tp_nccl_probe(group):
@@ -2595,7 +2714,8 @@ def run_task_parallel(root, counters, records):
         for name, n in got["launches"].items():
             dp_launches[name] += n
         for name in ("dirichlet_row_solve", "auction_assign",
-                     "fused_identity_bottleneck", "attention_rows"):
+                     "fused_identity_bottleneck", "attention_rows",
+                     "avg_pool_nhwc"):
             if got["launches"][name] <= 0:
                 fail(f"the two-rank runs launched {name} 0 times")
         torch.cuda.empty_cache()
@@ -2944,6 +3064,7 @@ def main():
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
         from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
         from transductive_clip_tpu_torch.ops import cuda_newton as cn
+        from transductive_clip_tpu_torch.ops import cuda_pool as cp
         from transductive_clip_tpu_torch.ops import cuda_tim as ct
         from transductive_clip_tpu_torch.ops import dirichlet_fixtures as fx
         from transductive_clip_tpu_torch.ops.auction import (
@@ -3009,6 +3130,11 @@ def main():
                               cn.newton_minka_step_reference,
                               "transductive_clip_tpu/ops/dirichlet.py:235",
                               "newton_minka.cu"),
+        # no Pallas kernel: the JAX towers pool with flax's nn.avg_pool; the
+        # plain version is F.avg_pool2d
+        "avg_pool_nhwc": (cp.avg_pool_nhwc, None,
+                          "transductive_clip_tpu/models/clip/resnet.py:45",
+                          "avg_pool.cu"),
     }
     records = {}
     with Phase("kernels_vs_plain"):
@@ -3071,6 +3197,7 @@ def main():
         records["tim_support_grad"] = rec
     run_newton_minka_step(records)
     run_kernel_checks_clip(records)
+    run_avg_pool_checks(records)
 
     counters = {name: k[0] for name, k in kernels.items()}
     launches = {}
@@ -3154,7 +3281,8 @@ def main():
                                          "class_tp_launches",
                                          "rounds_max",
                                          "rounds_mean", "bids", "scans",
-                                         "ms_per_round", "widths")
+                                         "ms_per_round", "widths",
+                                         "bound_share_min")
                if key in rec},
         })
     print(json.dumps({"kernels": listing}), flush=True)

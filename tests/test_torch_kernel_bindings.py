@@ -22,6 +22,7 @@ from transductive_clip_tpu_torch.ops import cuda_auction
 from transductive_clip_tpu_torch.ops import cuda_bottleneck
 from transductive_clip_tpu_torch.ops import cuda_dirichlet
 from transductive_clip_tpu_torch.ops import cuda_newton
+from transductive_clip_tpu_torch.ops import cuda_pool
 from transductive_clip_tpu_torch.ops import cuda_tim
 from transductive_clip_tpu_torch.ops import dirichlet_fixtures
 from transductive_clip_tpu_torch.ops import kernel_build
@@ -37,6 +38,7 @@ ENTRIES = {
     "tclip_auction": cuda_auction,
     "tclip_newton_minka_step": cuda_newton,
     "tclip_newton_minka_final": cuda_newton,
+    "tclip_avg_pool": cuda_pool,
     "tclip_special_check": dirichlet_fixtures,
 }
 

@@ -27,6 +27,15 @@ other case (the CPU, fp32, the unfolded graph, the stem's 3-channel
 convolution) takes the plain graph. Each forward counts its convolutions
 (``resnet.convs``) and those on the fused epilogue (``resnet.fused_convs``)
 on the active ``core.profiling`` timer.
+
+Every average pool (the stem's, a strided block's main path and its
+shortcut, on every route) goes through ``ops/cuda_pool.avg_pool_nhwc``: on
+the card the hand-written NHWC kernel, bit-equal to ``F.avg_pool2d``; on
+the CPU ``F.avg_pool2d`` itself. A pool of window 1 (layer1's shortcut)
+returns its input, as in the JAX package; the ``downsample`` Sequential
+keeps its ``AvgPool2d`` entry for OpenAI's state-dict keys and is not
+called as a whole. Each forward counts its pools of a window above 1
+(``resnet.pools``) and those the kernel ran (``resnet.kernel_pools``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ...ops.cuda_bottleneck import (
     fused_bottleneck_supported,
     fused_identity_bottleneck,
 )
+from ...ops.cuda_pool import avg_pool_nhwc
 from .config import CLIPVisionConfig
 
 BN_EPS = 1e-5
@@ -114,12 +124,17 @@ class Bottleneck(nn.Module):
             self.bn1, self.bn2, self.bn3 = bn1, bn2, bn3
         self.downsample = None
         if downsample:
-            # OpenAI's Sequential(("-1", AvgPool), ("0", Conv), ("1", BN))
+            # OpenAI's Sequential(("-1", AvgPool), ("0", Conv), ("1", BN));
+            # its pool runs through avg_pool_nhwc, the Sequential is never
+            # called
             conv, bn = _conv_bn(inplanes, planes * 4, 1, fold_bn)
             parts = [("-1", nn.AvgPool2d(stride)), ("0", conv)]
             if bn is not None:
                 parts.append(("1", bn))
             self.downsample = nn.Sequential(OrderedDict(parts))
+        # the pools of a window above 1 that run() takes: the main path's
+        # and the shortcut's of a strided block
+        self.pools = (stride > 1) * (1 + bool(downsample))
         # K5 takes identity blocks only (resnet.py:80-98 of the JAX package)
         self.fuse = bool(fuse) and fold_bn and not downsample and stride == 1
         self._kernel_weights = None
@@ -158,6 +173,14 @@ class Bottleneck(nn.Module):
         y = conv(x)
         return bn(y) if bn is not None else y
 
+    def _shortcut(self, x):
+        """The downsampling shortcut of the plain graph: the pool (none at
+        stride 1), the convolution and, unfolded, its BN."""
+        y = avg_pool_nhwc(x, self.stride)
+        for layer in list(self.downsample)[1:]:
+            y = layer(y)
+        return y
+
     def _fused_epilogue(self, x):
         """The folded block with every bias, ReLU and the residual add in
         cuDNN's epilogues; the shortcut convolution runs bias-free, its
@@ -167,13 +190,13 @@ class Bottleneck(nn.Module):
                                "epilogue needs prepare_epilogue_bias()")
         out = _conv_relu_fused(self.conv1, x)
         out = _conv_relu_fused(self.conv2, out)
-        if self.stride > 1:
-            out = F.avg_pool2d(out, self.stride)
+        out = avg_pool_nhwc(out, self.stride)
         identity, bias = x, self.conv3.bias
         if self.downsample is not None:
-            pool, conv = self.downsample[0], self.downsample[1]
-            identity = F.conv2d(pool(x), conv.weight, None, conv.stride,
-                                conv.padding, conv.dilation, conv.groups)
+            conv = self.downsample[1]
+            identity = F.conv2d(avg_pool_nhwc(x, self.stride), conv.weight,
+                                None, conv.stride, conv.padding,
+                                conv.dilation, conv.groups)
             bias = self.residual_bias
         c3 = self.conv3
         return torch.cudnn_convolution_add_relu(
@@ -204,10 +227,9 @@ class Bottleneck(nn.Module):
                else (self.bn1, self.bn2, self.bn3))
         out = F.relu(self._plain(self.conv1, bns[0], x))
         out = F.relu(self._plain(self.conv2, bns[1], out))
-        if self.stride > 1:
-            out = F.avg_pool2d(out, self.stride)
+        out = avg_pool_nhwc(out, self.stride)
         out = self._plain(self.conv3, bns[2], out)
-        identity = x if self.downsample is None else self.downsample(x)
+        identity = x if self.downsample is None else self._shortcut(x)
         return F.relu(out + identity), convs, 0
 
 
@@ -289,13 +311,18 @@ class ModifiedResNet(nn.Module):
                 continue
             x = conv(x)
             x = F.relu(bn(x) if bn is not None else x)
-        x = F.avg_pool2d(x, 2)
+        launched = avg_pool_nhwc.launches
+        x = avg_pool_nhwc(x, 2)
+        pools = 1
         for block in self.blocks():
             x, n, n_fused = block.run(
                 x.contiguous(memory_format=torch.channels_last))
             convs, fused = convs + n, fused + n_fused
+            pools += block.pools
         count("resnet.convs", convs)
         count("resnet.fused_convs", fused)
+        count("resnet.pools", pools)
+        count("resnet.kernel_pools", avg_pool_nhwc.launches - launched)
         return self.attnpool(x)
 
 

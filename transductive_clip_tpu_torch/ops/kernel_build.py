@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # every kernel source of the port, and special_check.cu, which checks the
 # Dirichlet kernels' arithmetic; chip_smoke.py builds them all together
 SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu", "attention.cu",
-           "bottleneck.cu", "auction.cu", "newton_minka.cu",
+           "bottleneck.cu", "auction.cu", "newton_minka.cu", "avg_pool.cu",
            "special_check.cu")
 # no --use_fast_math: the parity of the kernels with their plain versions
 # rests on IEEE fp32 division, logf and expf; -Xptxas -v reports each
