@@ -1,15 +1,28 @@
 """CLIP Vision Transformer tower (ViT-B/16, ViT-B/32, ViT-L/14) —
 counterpart of transductive_clip_tpu/models/clip/vit.py, with OpenAI's
 state-dict names (``visual.conv1.weight``, ``visual.class_embedding``,
-...)."""
+...).
+
+Each forward counts, on the active ``core.profiling`` timer, the
+attention modules its transformer ran (``vit.attention``, one a layer)
+and those that ran in a hand-written kernel (``vit.kernel_attention``: the
+launches of ``ops/cuda_attention``'s K4a and K4b in the forward, whichever
+``attention_route`` picked; 0 on the CPU and on the 'xla' route), after
+the transformer and outside its loop."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...core.profiling import count
+from ...ops.cuda_attention import attention_blocked, attention_rows
 from .config import CLIPVisionConfig
 from .layers import LN_EPS, Transformer
+
+
+def _kernel_launches() -> int:
+    return attention_rows.launches + attention_blocked.launches
 
 
 class VisionTransformer(nn.Module):
@@ -39,6 +52,9 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
         x = self.ln_pre(x)
+        launched = _kernel_launches()
         x = self.transformer(x)
+        count("vit.attention", len(self.transformer.resblocks))
+        count("vit.kernel_attention", _kernel_launches() - launched)
         x = self.ln_post(x[:, 0, :])
         return x @ self.proj.to(x.dtype)
