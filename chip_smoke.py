@@ -99,7 +99,13 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    pool shapes at batch 512 in bf16, fp16 and fp32, timed in bf16 (ten
    calls queued a timed window) beside its bytes bound and F.avg_pool2d,
    and untimed at odd sizes, window 3, channels off 16 bytes, an NCHW
-   input and a pointer off 16 bytes (avg_pool_vs_library);
+   input and a pointer off 16 bytes (avg_pool_vs_library); the QuickGELU
+   kernel (csrc/quick_gelu.cu) bit-equal to the plain chain x *
+   sigmoid(1.702 x) at the MLP hiddens of ViT-L/14@336px [512, 577, 4096]
+   and ViT-B/16 [512, 197, 3072] in bf16 (the latter in fp16 and fp32
+   too), both bf16 shapes timed (ten calls queued a timed window) beside
+   the bytes bound and the chain's time, and untimed at odd sizes, below
+   one 16-byte pack and from a pointer off 16 bytes (quick_gelu_vs_plain);
 8. CLIP extraction with RN50 (bf16, ``fused_resnet=True``: K5 on the 12
    identity blocks of every batch, K4a in the text tower) at full width on
    random weights written as an OpenAI checkpoint, over a EuroSAT-shaped
@@ -311,6 +317,12 @@ RN50_POOLS = {"stem": (64, 112, 112),
 # odd sizes (floor mode), window 3, channels of 40 and 12 bytes
 POOL_EDGES = (((3, 64, 15, 13), 2), ((3, 64, 15, 13), 3),
               ((3, 20, 14, 14), 2), ((2, 3, 9, 9), 2))
+# the MLP hiddens [b, n, 4 width] of a batch of 512: ViT-L/14@336px,
+# ViT-B/16; and the QuickGELU kernel off its 16-byte path, untimed
+# (element counts: odd, below one pack, one)
+GELU_HIDDENS = {"ViT-L/14@336px": (EXTRACT_BATCH, 577, 4096),
+                "ViT-B/16": (EXTRACT_BATCH, 197, 3072)}
+GELU_EDGES = (1_000_003, 8 * 1024 * 4 + 5, 7, 1)
 # RN50's identity bottlenecks: ([H, W, C], Cm) and launches a batch
 RN50_IDENTITY = (((56, 56, 256), 64, 2), ((28, 28, 512), 128, 3),
                  ((14, 14, 1024), 256, 5), ((7, 7, 2048), 512, 2))
@@ -1768,6 +1780,77 @@ def run_avg_pool_checks(records):
         records["avg_pool_nhwc"] = rec
 
 
+def run_quick_gelu_checks(records):
+    """Phase quick_gelu_vs_plain: the QuickGELU kernel (csrc/quick_gelu.cu)
+    against its plain version, the chain x * sigmoid(1.702 x), at the MLP
+    hiddens of a batch of 512 (GELU_HIDDENS): bit-equal in bf16 at both, in
+    fp16 and fp32 at ViT-B/16's; both bf16 shapes timed (ten calls queued a
+    timed window) beside the bytes bound (input read once, output written
+    once) and the chain's time; then untimed at GELU_EDGES in three dtypes
+    and from a pointer off 16 bytes. No one PyTorch call computes it.
+    Runs alone: ``python3 -c "import chip_smoke as c;
+    c.run_quick_gelu_checks({})"``."""
+    import torch
+
+    from transductive_clip_tpu_torch.ops.cuda_gelu import (
+        quick_gelu,
+        quick_gelu_reference,
+    )
+
+    def check(x, name):
+        got = quick_gelu(x)
+        want = quick_gelu_reference(x)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs().max().item()
+            fail(f"quick_gelu {name}: not bit-equal to the chain (max "
+                 f"|difference| {diff:.3e})")
+        return got
+
+    with Phase("quick_gelu_vs_plain"):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        rec = {"max_abs_err": 0.0, "bound_by": "bytes", "per_shape": []}
+        for model, shape in GELU_HIDDENS.items():
+            dtypes = (torch.bfloat16,) if model == "ViT-L/14@336px" else (
+                torch.float32, torch.float16, torch.bfloat16)
+            for dtype in dtypes:
+                x = (3.0 * torch.randn(shape, generator=g,
+                                       device="cuda")).to(dtype)
+                got = check(x, f"{model} {list(shape)} {str(dtype)[6:]}")
+                if dtype != torch.bfloat16:
+                    del x, got
+                    torch.cuda.empty_cache()
+            nbytes = 2 * x.numel() * x.element_size()
+            one = {"model": model, "shape": list(shape),
+                   "ms": time_ms(lambda: quick_gelu(x), inner=10),
+                   "plain_ms": time_ms(lambda: quick_gelu_reference(x),
+                                       inner=10),
+                   "bytes": nbytes, **_bound(0, nbytes, PEAK_BF16_S)}
+            one["bound_share"] = one["bound_ms"] / one["ms"]
+            log(f"quick_gelu {model} {list(shape)} bf16: ms {one['ms']:.4f} "
+                f"bound_ms {one['bound_ms']:.4f} (bytes {nbytes:.4e}; "
+                f"{100 * one['bound_share']:.1f}% of the bound) plain_ms "
+                f"(the chain) {one['plain_ms']:.4f}")
+            rec["per_shape"].append(one)
+            del x, got
+            torch.cuda.empty_cache()
+        # the ViT-L/14@336px hidden, the costliest cell's
+        for key in ("ms", "plain_ms", "bound_ms", "bound_share"):
+            rec[key] = rec["per_shape"][0][key]
+        rec["bound_share_min"] = min(o["bound_share"]
+                                     for o in rec["per_shape"])
+        for n in GELU_EDGES:
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                check((3.0 * torch.randn(n, generator=g, device="cuda")).to(
+                    dtype), f"{n} elements {str(dtype)[6:]}")
+        flat = (3.0 * torch.randn(3 * 4097 + 1, generator=g,
+                                  device="cuda")).to(torch.bfloat16)
+        check(flat[1:].view(3, 4097), "[3, 4097] bf16 off 16 bytes")
+        log(f"quick_gelu: bit-equal to the chain at {len(GELU_EDGES)} edge "
+            "sizes in three dtypes and off 16 bytes")
+        records["quick_gelu"] = rec
+
+
 def run_kernel_checks_clip(records):
     """Phases k4_vs_plain and k5_vs_plain."""
     import torch
@@ -1945,9 +2028,10 @@ def compare_routes(label, model, images, prompts, counters):
     import torch
 
     probes = attention_probes(model)
-    # the pool kernel runs on both routes: every ResNet pool takes it
+    # the pool and QuickGELU kernels run on both routes: every ResNet pool
+    # and every MLP activation takes them
     route_kernels = [w for name, w in counters.items()
-                     if name != "avg_pool_nhwc"]
+                     if name not in ("avg_pool_nhwc", "quick_gelu")]
 
     def both():
         seen = {}
@@ -2343,12 +2427,16 @@ def run_extraction(root, counters, records, launches):
         torch.cuda.empty_cache()
     blocked = records["attention_blocked"]
     blocked["bf16_path_launches"], blocked["bf16_batch"] = {}, {}
+    records["quick_gelu"]["bf16_path_launches"] = {}
     with Phase("extraction_vitb16_bf16"):
         # the CLI's default extraction of a ViT backbone: bf16 compute and
         # attention 'auto', every test image in batches of extract_batch_size
         path = vit_bf16_extraction(
             "ViT-B/16", root, dataset_path, dataset, dataset.test,
-            EXTRACT_BATCH, prompts, counters, blocked)
+            EXTRACT_BATCH, prompts, counters, blocked,
+            records["quick_gelu"])
+        launches["quick_gelu"] = records["quick_gelu"]["bf16_path_launches"][
+            "ViT-B/16"]
         note_host_fallback.count = 0
         acc, sec_per_task = cli.main(
             ["--config-root", os.path.join(HERE, "config"), "--opts",
@@ -2372,15 +2460,16 @@ def run_extraction(root, counters, records, launches):
         vit_bf16_extraction(
             "ViT-L/14@336px", os.path.join(root, "vitl336_bf16"),
             dataset_path, dataset, dataset.test[::VIT_EVERY], VIT_BATCH,
-            prompts, counters, blocked)
+            prompts, counters, blocked, records["quick_gelu"])
 
 
 def vit_bf16_extraction(name, root, dataset_path, dataset, items, batch,
-                        prompts, counters, blocked):
+                        prompts, counters, blocked, gelu):
     """One bf16 ViT extraction through the port's entry points (``load``
     with its defaults: bf16 compute, attention 'auto', which must resolve
     to 'fused'), K4b launched once a layer and batch and K4a once a text
-    layer; the softmax cache checked, one batch held against the plain
+    layer, the QuickGELU kernel once a layer of either tower and batch;
+    the softmax cache checked, one batch held against the plain
     route, timed on both routes and profiled. Returns the cache path."""
     import numpy as np
     import torch
@@ -2410,6 +2499,12 @@ def vit_bf16_extraction(name, root, dataset_path, dataset, items, batch,
         fail(f"{label} extraction launched {got}, not K4b {v.layers} a "
              f"batch ({v.layers * n_batches}) and K4a {cfg.text.layers}")
     blocked["bf16_path_launches"][name] = got["attention_blocked"]
+    activations = v.layers * n_batches + cfg.text.layers
+    if got["quick_gelu"] != activations:
+        fail(f"{label} extraction launched the QuickGELU kernel "
+             f"{got['quick_gelu']} times, not once a layer and batch "
+             f"({activations})")
+    gelu["bf16_path_launches"][name] = got["quick_gelu"]
     feats, _ = load_feature_cache(path)
     if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
             np.isfinite(feats).all()
@@ -2484,6 +2579,7 @@ def _kernel_counters():
     from transductive_clip_tpu_torch.ops import cuda_auction as cau
     from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
     from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+    from transductive_clip_tpu_torch.ops import cuda_gelu as cg
     from transductive_clip_tpu_torch.ops import cuda_pool as cp
     from transductive_clip_tpu_torch.ops import cuda_tim as ct
 
@@ -2494,7 +2590,8 @@ def _kernel_counters():
             "attention_blocked": ca.attention_blocked,
             "fused_identity_bottleneck": cb.fused_identity_bottleneck,
             "auction_assign": cau.auction_assign,
-            "avg_pool_nhwc": cp.avg_pool_nhwc}
+            "avg_pool_nhwc": cp.avg_pool_nhwc,
+            "quick_gelu": cg.quick_gelu}
 
 
 def _tp_nccl_probe(group):
@@ -3063,6 +3160,7 @@ def main():
         from transductive_clip_tpu_torch.ops import cuda_auction as cau
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
         from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+        from transductive_clip_tpu_torch.ops import cuda_gelu as cg
         from transductive_clip_tpu_torch.ops import cuda_newton as cn
         from transductive_clip_tpu_torch.ops import cuda_pool as cp
         from transductive_clip_tpu_torch.ops import cuda_tim as ct
@@ -3135,6 +3233,10 @@ def main():
         "avg_pool_nhwc": (cp.avg_pool_nhwc, None,
                           "transductive_clip_tpu/models/clip/resnet.py:45",
                           "avg_pool.cu"),
+        # no Pallas kernel: the JAX towers' QuickGELU is plain XLA
+        "quick_gelu": (cg.quick_gelu, cg.quick_gelu_reference,
+                       "transductive_clip_tpu/models/clip/layers.py:18",
+                       "quick_gelu.cu"),
     }
     records = {}
     with Phase("kernels_vs_plain"):
@@ -3198,6 +3300,7 @@ def main():
     run_newton_minka_step(records)
     run_kernel_checks_clip(records)
     run_avg_pool_checks(records)
+    run_quick_gelu_checks(records)
 
     counters = {name: k[0] for name, k in kernels.items()}
     launches = {}

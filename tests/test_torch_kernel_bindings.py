@@ -1,13 +1,13 @@
 """The seam through which every kernel wrapper binds and launches its CUDA
 entry points (``ops/kernel_build.py``): each wrapper's signature table
 against the C prototype in its ``csrc/`` source, read as text (a pointer,
-an int or a float in each place; on the CPU no wrapper reaches the card, so
-only this holds a table to its source), every exported entry point bound
-by exactly one table, and ``load`` and ``launch`` against fakes of the
-library and of the CUDA runtime: the letters bound as ctypes types, the
-stream passed last, the device's context entered only when another device
-is current, and a non-zero return raised as an error that names the entry
-point."""
+an int, a long long or a float in each place; on the CPU no wrapper
+reaches the card, so only this holds a table to its source), every
+exported entry point bound by exactly one table, and ``load`` and
+``launch`` against fakes of the library and of the CUDA runtime: the
+letters bound as ctypes types, the stream passed last, the device's
+context entered only when another device is current, and a non-zero
+return raised as an error that names the entry point."""
 
 import contextlib
 import ctypes
@@ -21,6 +21,7 @@ from transductive_clip_tpu_torch.ops import cuda_attention
 from transductive_clip_tpu_torch.ops import cuda_auction
 from transductive_clip_tpu_torch.ops import cuda_bottleneck
 from transductive_clip_tpu_torch.ops import cuda_dirichlet
+from transductive_clip_tpu_torch.ops import cuda_gelu
 from transductive_clip_tpu_torch.ops import cuda_newton
 from transductive_clip_tpu_torch.ops import cuda_pool
 from transductive_clip_tpu_torch.ops import cuda_tim
@@ -39,6 +40,7 @@ ENTRIES = {
     "tclip_newton_minka_step": cuda_newton,
     "tclip_newton_minka_final": cuda_newton,
     "tclip_avg_pool": cuda_pool,
+    "tclip_quick_gelu": cuda_gelu,
     "tclip_special_check": dirichlet_fixtures,
 }
 
@@ -54,7 +56,7 @@ def _prototype(source: str, name: str) -> str:
         if "*" in words:
             letters.append("p")
         else:
-            letters.append({"int": "i", "float": "f"}[words[-2]])
+            letters.append({"int": "i", "long": "l", "float": "f"}[words[-2]])
     return "".join(letters)
 
 
@@ -101,6 +103,24 @@ def test_load_binds_each_table_once_a_source(monkeypatch):
     assert lib.tclip_a.restype is ctypes.c_int
     assert kernel_build.load("auction.cu", table) is lib
     assert FakeLibrary.opened == 1
+
+
+def test_load_binds_a_long_long_as_64_bits(monkeypatch):
+    """``l``, an element count past 2^31 (QuickGELU's hidden at batch 512
+    is 1.21e9 elements), binds as a C ``long long``, not an int."""
+
+    class FakeLibrary:
+        def __init__(self, path):
+            self.tclip_c = types.SimpleNamespace()
+
+    monkeypatch.setattr(kernel_build, "build", lambda sources: None)
+    monkeypatch.setattr(kernel_build.ctypes, "CDLL", FakeLibrary)
+    monkeypatch.setattr(kernel_build, "_loaded", {})
+    lib = kernel_build.load("quick_gelu.cu", {"tclip_c": "pp l i p"})
+    assert lib.tclip_c.argtypes == [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_void_p]
+    assert ctypes.sizeof(lib.tclip_c.argtypes[2]) == 8
 
 
 class _FakeCuda:

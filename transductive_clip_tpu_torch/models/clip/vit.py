@@ -8,7 +8,10 @@ attention modules its transformer ran (``vit.attention``, one a layer)
 and those that ran in a hand-written kernel (``vit.kernel_attention``: the
 launches of ``ops/cuda_attention``'s K4a and K4b in the forward, whichever
 ``attention_route`` picked; 0 on the CPU and on the 'xla' route), after
-the transformer and outside its loop."""
+the transformer and outside its loop; and, the same way, the MLP
+activations it ran (``vit.mlp_activations``, one a layer) and those that
+ran in the QuickGELU kernel (``vit.kernel_activations``: the launches of
+``ops/cuda_gelu.quick_gelu`` in the forward; 0 off the card)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 
 from ...core.profiling import count
 from ...ops.cuda_attention import attention_blocked, attention_rows
+from ...ops.cuda_gelu import quick_gelu
 from .config import CLIPVisionConfig
 from .layers import LN_EPS, Transformer
 
@@ -52,9 +56,12 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
         x = self.ln_pre(x)
-        launched = _kernel_launches()
+        launched, activated = _kernel_launches(), quick_gelu.launches
         x = self.transformer(x)
-        count("vit.attention", len(self.transformer.resblocks))
+        layers = len(self.transformer.resblocks)
+        count("vit.attention", layers)
         count("vit.kernel_attention", _kernel_launches() - launched)
+        count("vit.mlp_activations", layers)
+        count("vit.kernel_activations", quick_gelu.launches - activated)
         x = self.ln_post(x[:, 0, :])
         return x @ self.proj.to(x.dtype)

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # Dirichlet kernels' arithmetic; chip_smoke.py builds them all together
 SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu", "attention.cu",
            "bottleneck.cu", "auction.cu", "newton_minka.cu", "avg_pool.cu",
-           "special_check.cu")
+           "quick_gelu.cu", "special_check.cu")
 # no --use_fast_math: the parity of the kernels with their plain versions
 # rests on IEEE fp32 division, logf and expf; -Xptxas -v reports each
 # kernel's registers, shared memory and spills into ``build_log``
@@ -133,8 +133,10 @@ def host_library(source: Path) -> Path:
 
 
 #: the letters of a signature table: a pointer (a tensor's ``data_ptr()``,
-#: None or the stream), a C int, a C float; spaces only group them
-ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+#: None or the stream), a C int, a C ``long long`` (an element count past
+#: 2^31), a C float; spaces only group them
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "f": ctypes.c_float}
 
 
 def load(source: str, signatures: dict) -> ctypes.CDLL:
