@@ -14,8 +14,10 @@ transductive_clip_tpu/core/profiling.py).
   ``ops.dirichlet.minka_newton_update_alpha``: ``newton``,
   ``newton.steps``, ``newton.kernel_steps`` (the steps that ran in
   ``csrc/newton_minka.cu``), ``newton.row_steps``; the EM-Dirichlet loops:
-  ``em.iterations``; ``parallel.task_parallel``: ``parallel.*``). With no
-  timer active they do nothing (one global read).
+  ``em.iterations``, and the zero-shot compact steps ``em.compact_steps``,
+  ``em.fast_steps``, ``em.populated``; ``parallel.task_parallel``:
+  ``parallel.*``). With no timer active they do nothing (one global
+  read).
 * While a profiler records, every span and phase is also a
   ``torch.profiler.record_function`` range, so it shows in the same trace
   as the kernels, on its clock; otherwise no range is entered.

@@ -186,6 +186,13 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
     under tp > 1 the selection is made on the gathered masses and the rank
     solves its ``width`` rows of it (``owned_rows``), which cover the
     solved rows it owns, with no fast tier.
+
+    Counts the step in ``em.compact_steps``, in ``em.fast_steps`` when it
+    took the fast tier, and its populated rows, ``pop_max`` up to
+    ``n_compact`` (the step solves at most that many), in ``em.populated``
+    (core.profiling): host values, so no transfer. The first iteration's
+    step under ``compact_first`` counts too; on raw features it reads
+    ``n_compact``.
     """
     cs = cs or class_shard(None, n_class)
     n = u.shape[1]
@@ -210,7 +217,11 @@ def _em_step_compact(u, alpha, l12, l3, log_query, lambd, n_query,
         return update_alpha(a_old, y, iter_mm=iter_mm, solver=solver,
                             row_mask=m, share=share, cs=cs)
 
-    if n_fast is not None and n_fast < n_compact and pop_max <= n_fast:
+    fast = n_fast is not None and n_fast < n_compact and pop_max <= n_fast
+    count("em.compact_steps")
+    count("em.fast_steps", int(fast))
+    count("em.populated", min(pop_max, n_compact))
+    if fast:
         a = solve(alpha_c_old[:, :n_fast], y_c[:, :n_fast],
                   row_mask[:, :n_fast])
         # the tail rows carry no mass (gate) -> frozen at old values
@@ -268,7 +279,8 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
 
     ``early_stop_tol`` is compared in fp32, as the JAX package compares it.
     The executed iterations are counted in ``em.iterations``
-    (core.profiling).
+    (core.profiling), the compact steps in ``em.compact_steps``,
+    ``em.fast_steps`` and ``em.populated`` (``_em_step_compact``).
 
     ``group`` (a parallel.TaskGroup): ``query`` is this dp slice's
     contiguous share of a batch of ``group.dp`` equal shares. Every
