@@ -106,6 +106,14 @@ Phases, each timed on a line of its own; any failure exits non-zero:
    too), both bf16 shapes timed (ten calls queued a timed window) beside
    the bytes bound and the chain's time, and untimed at odd sizes, below
    one 16-byte pack and from a pointer off 16 bytes (quick_gelu_vs_plain);
+   the add-norm kernel (csrc/add_layer_norm.cu): s bit-equal to x + y and
+   h within one ulp (plus 2^-16 of its fp32 terms) of an fp32 LayerNorm of
+   s, at the residual streams of ViT-L/14@336px [512 x 577, 1024] and
+   ViT-B/16 [512 x 197, 768] in bf16 (the latter in fp16 and fp32 too),
+   both bf16 shapes timed (ten calls queued a timed window) beside the
+   bytes bound (x, y read once, s, h written once) and the plain pair's
+   time, and untimed at odd widths, below a warp and from a pointer off 16
+   bytes (add_layer_norm_vs_plain);
 8. CLIP extraction with RN50 (bf16, ``fused_resnet=True``: K5 on the 12
    identity blocks of every batch, K4a in the text tower) at full width on
    random weights written as an OpenAI checkpoint, over a EuroSAT-shaped
@@ -323,6 +331,12 @@ POOL_EDGES = (((3, 64, 15, 13), 2), ((3, 64, 15, 13), 3),
 GELU_HIDDENS = {"ViT-L/14@336px": (EXTRACT_BATCH, 577, 4096),
                 "ViT-B/16": (EXTRACT_BATCH, 197, 3072)}
 GELU_EDGES = (1_000_003, 8 * 1024 * 4 + 5, 7, 1)
+# the residual streams [rows, width] of a batch of 512: ViT-L/14@336px,
+# ViT-B/16; and the add-norm kernel at the text towers' and RN50x4's
+# widths, an odd one, below a warp and one, untimed ([rows, width])
+ADD_NORM_STREAMS = {"ViT-L/14@336px": (EXTRACT_BATCH * 577, 1024),
+                    "ViT-B/16": (EXTRACT_BATCH * 197, 768)}
+ADD_NORM_EDGES = ((1000 * 77, 512), (45, 640), (37, 771), (19, 24), (9, 1))
 # RN50's identity bottlenecks: ([H, W, C], Cm) and launches a batch
 RN50_IDENTITY = (((56, 56, 256), 64, 2), ((28, 28, 512), 128, 3),
                  ((14, 14, 1024), 256, 5), ((7, 7, 2048), 512, 2))
@@ -1851,6 +1865,131 @@ def run_quick_gelu_checks(records):
         records["quick_gelu"] = rec
 
 
+def _add_norm_error(s, h, weight, bias):
+    """(max |h - ref|, the largest |h - ref| over its tolerance) with ref an
+    fp32 LayerNorm of s. The tolerance is one ulp of h's dtype at ref plus
+    2^-16 of ref's fp32 terms, |weight| (|n| + |mean| rstd) + |bias|: the
+    kernel's statistics sum in another order than the reference's, an error
+    that grows with |mean| over the row's spread, and weight n + bias can
+    cancel (tests/test_torch_clip_add_layer_norm.py states it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from transductive_clip_tpu_torch.models.clip.layers import LN_EPS
+
+    mantissa = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+    w = s.shape[-1]
+    sf = s.float()
+    ref = F.layer_norm(sf, (w,), weight.float(), bias.float(), LN_EPS)
+    err = (h.float() - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(
+        torch.finfo(h.dtype).tiny))) - mantissa[h.dtype])
+    del ref
+    n = F.layer_norm(sf, (w,), None, None, LN_EPS)
+    mean = sf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(sf.var(-1, unbiased=False, keepdim=True) + LN_EPS)
+    n.abs_().add_(mean.abs() * rstd).mul_(weight.float().abs()).add_(
+        bias.float().abs())
+    tol = ulp.add_(n.mul_(2.0 ** -16))
+    return err.max().item(), (err / tol).max().item()
+
+
+def run_add_layer_norm_checks(records):
+    """Phase add_layer_norm_vs_plain: the add-norm kernel
+    (csrc/add_layer_norm.cu) against its plain version, x + y then
+    F.layer_norm, at the residual streams of a batch of 512
+    (ADD_NORM_STREAMS): s bit-equal to x + y and written over y, h within
+    the tolerance of ``_add_norm_error``, in bf16 at both, in fp16 and fp32
+    at ViT-B/16's; both bf16 shapes timed (ten calls queued a timed window)
+    beside the bytes bound (x and y read once, s and h written once) and
+    the plain pair's time; then untimed at ADD_NORM_EDGES in three dtypes
+    and from a pointer off 16 bytes. No one PyTorch call computes both
+    outputs. Runs alone: ``python3 -c "import chip_smoke as c;
+    c.run_add_layer_norm_checks({})"``."""
+    import torch
+
+    from transductive_clip_tpu_torch.models.clip.layers import LN_EPS
+    from transductive_clip_tpu_torch.ops.cuda_add_norm import (
+        add_layer_norm,
+        add_layer_norm_reference,
+    )
+
+    def inputs(rows, w, dtype, g):
+        x = 8.0 * (2 * torch.rand(rows, 1, generator=g, device="cuda") - 1) + (
+            0.25 + 3.75 * torch.rand(rows, 1, generator=g, device="cuda")) * (
+            torch.randn(rows, w, generator=g, device="cuda"))
+        y = torch.randn(rows, w, generator=g, device="cuda")
+        weight = 1.0 + 0.2 * torch.randn(w, generator=g, device="cuda")
+        bias = 0.2 * torch.randn(w, generator=g, device="cuda")
+        return [t.to(dtype) for t in (x, y, weight, bias)]
+
+    def check(x, y, weight, bias, name):
+        want_s = x + y
+        ptr = y.data_ptr()
+        s, h = add_layer_norm(x, y, weight, bias, LN_EPS)
+        torch.cuda.synchronize()
+        if s.data_ptr() != ptr or not torch.equal(s, want_s):
+            fail(f"add_layer_norm {name}: s not written over y or not "
+                 "bit-equal to x + y")
+        del want_s
+        err, excess = _add_norm_error(s, h, weight, bias)
+        if not excess <= 1.0:
+            fail(f"add_layer_norm {name}: h off an fp32 LayerNorm of s by "
+                 f"{excess:.3f} times its tolerance (max |difference| "
+                 f"{err:.3e})")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["tolerance_used"] = max(rec["tolerance_used"], excess)
+
+    with Phase("add_layer_norm_vs_plain"):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        rec = {"max_abs_err": 0.0, "tolerance_used": 0.0, "bound_by": "bytes",
+               "library_ms": None, "per_shape": []}
+        for model, (rows, w) in ADD_NORM_STREAMS.items():
+            dtypes = (torch.bfloat16,) if model == "ViT-L/14@336px" else (
+                torch.float32, torch.float16, torch.bfloat16)
+            for dtype in dtypes:
+                x, y, weight, bias = inputs(rows, w, dtype, g)
+                check(x, y, weight, bias,
+                      f"{model} [{rows}, {w}] {str(dtype)[6:]}")
+                torch.cuda.empty_cache()
+            nbytes = 4 * x.numel() * x.element_size()
+            one = {"model": model, "shape": [rows, w],
+                   "ms": time_ms(lambda: add_layer_norm(
+                       x, y, weight, bias, LN_EPS), inner=10),
+                   "plain_ms": time_ms(lambda: add_layer_norm_reference(
+                       x, y, weight, bias, LN_EPS), inner=10),
+                   "bytes": nbytes, **_bound(0, nbytes, PEAK_BF16_S)}
+            one["bound_share"] = one["bound_ms"] / one["ms"]
+            log(f"add_layer_norm {model} [{rows}, {w}] bf16: ms "
+                f"{one['ms']:.4f} bound_ms {one['bound_ms']:.4f} (bytes "
+                f"{nbytes:.4e}; {100 * one['bound_share']:.1f}% of the "
+                f"bound) plain_ms (x + y, F.layer_norm) "
+                f"{one['plain_ms']:.4f}")
+            rec["per_shape"].append(one)
+            del x, y, weight, bias
+            torch.cuda.empty_cache()
+        # the ViT-L/14@336px stream, the costliest cell's
+        for key in ("ms", "plain_ms", "bound_ms", "bound_share"):
+            rec[key] = rec["per_shape"][0][key]
+        rec["bound_share_min"] = min(o["bound_share"]
+                                     for o in rec["per_shape"])
+        for rows, w in ADD_NORM_EDGES:
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                check(*inputs(rows, w, dtype, g),
+                      f"[{rows}, {w}] {str(dtype)[6:]}")
+        x, y, weight, bias = inputs(21, 1024, torch.bfloat16, g)
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        off = flat[1:].view(x.shape)
+        off.copy_(x)
+        check(off, y, weight, bias, "[21, 1024] bf16, x off 16 bytes")
+        log(f"add_layer_norm: s bit-equal to x + y and h within "
+            f"{rec['tolerance_used']:.3f} of its tolerance (max |h - ref| "
+            f"{rec['max_abs_err']:.3e}) at {len(ADD_NORM_STREAMS)} streams, "
+            f"{len(ADD_NORM_EDGES)} edge shapes in three dtypes and off 16 "
+            "bytes")
+        records["add_layer_norm"] = rec
+
+
 def run_kernel_checks_clip(records):
     """Phases k4_vs_plain and k5_vs_plain."""
     import torch
@@ -2028,10 +2167,11 @@ def compare_routes(label, model, images, prompts, counters):
     import torch
 
     probes = attention_probes(model)
-    # the pool and QuickGELU kernels run on both routes: every ResNet pool
-    # and every MLP activation takes them
+    # the pool, QuickGELU and add-norm kernels run on both routes: every
+    # ResNet pool, every MLP activation and every residual add takes them
     route_kernels = [w for name, w in counters.items()
-                     if name not in ("avg_pool_nhwc", "quick_gelu")]
+                     if name not in ("avg_pool_nhwc", "quick_gelu",
+                                     "add_layer_norm")]
 
     def both():
         seen = {}
@@ -2428,15 +2568,18 @@ def run_extraction(root, counters, records, launches):
     blocked = records["attention_blocked"]
     blocked["bf16_path_launches"], blocked["bf16_batch"] = {}, {}
     records["quick_gelu"]["bf16_path_launches"] = {}
+    records["add_layer_norm"]["bf16_path_launches"] = {}
     with Phase("extraction_vitb16_bf16"):
         # the CLI's default extraction of a ViT backbone: bf16 compute and
         # attention 'auto', every test image in batches of extract_batch_size
         path = vit_bf16_extraction(
             "ViT-B/16", root, dataset_path, dataset, dataset.test,
             EXTRACT_BATCH, prompts, counters, blocked,
-            records["quick_gelu"])
+            records["quick_gelu"], records["add_layer_norm"])
         launches["quick_gelu"] = records["quick_gelu"]["bf16_path_launches"][
             "ViT-B/16"]
+        launches["add_layer_norm"] = records["add_layer_norm"][
+            "bf16_path_launches"]["ViT-B/16"]
         note_host_fallback.count = 0
         acc, sec_per_task = cli.main(
             ["--config-root", os.path.join(HERE, "config"), "--opts",
@@ -2460,16 +2603,17 @@ def run_extraction(root, counters, records, launches):
         vit_bf16_extraction(
             "ViT-L/14@336px", os.path.join(root, "vitl336_bf16"),
             dataset_path, dataset, dataset.test[::VIT_EVERY], VIT_BATCH,
-            prompts, counters, blocked, records["quick_gelu"])
+            prompts, counters, blocked, records["quick_gelu"],
+            records["add_layer_norm"])
 
 
 def vit_bf16_extraction(name, root, dataset_path, dataset, items, batch,
-                        prompts, counters, blocked, gelu):
+                        prompts, counters, blocked, gelu, add_norms):
     """One bf16 ViT extraction through the port's entry points (``load``
     with its defaults: bf16 compute, attention 'auto', which must resolve
     to 'fused'), K4b launched once a layer and batch and K4a once a text
-    layer, the QuickGELU kernel once a layer of either tower and batch;
-    the softmax cache checked, one batch held against the plain
+    layer, the QuickGELU kernel once a layer of either tower and batch, the
+    add-norm kernel 2 x layers - 1 times a tower and batch; the softmax cache checked, one batch held against the plain
     route, timed on both routes and profiled. Returns the cache path."""
     import numpy as np
     import torch
@@ -2505,6 +2649,13 @@ def vit_bf16_extraction(name, root, dataset_path, dataset, items, batch,
              f"{got['quick_gelu']} times, not once a layer and batch "
              f"({activations})")
     gelu["bf16_path_launches"][name] = got["quick_gelu"]
+    # each tower's 2 x layers - 1 residual adds with their LayerNorms
+    pairs = (2 * v.layers - 1) * n_batches + 2 * cfg.text.layers - 1
+    if got["add_layer_norm"] != pairs:
+        fail(f"{label} extraction launched the add-norm kernel "
+             f"{got['add_layer_norm']} times, not 2 x layers - 1 a tower "
+             f"and batch ({pairs})")
+    add_norms["bf16_path_launches"][name] = got["add_layer_norm"]
     feats, _ = load_feature_cache(path)
     if feats.shape != (len(items), len(EUROSAT_CLASSES)) or not (
             np.isfinite(feats).all()
@@ -2579,6 +2730,7 @@ def _kernel_counters():
     from transductive_clip_tpu_torch.ops import cuda_auction as cau
     from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
     from transductive_clip_tpu_torch.ops import cuda_dirichlet as cd
+    from transductive_clip_tpu_torch.ops import cuda_add_norm as can
     from transductive_clip_tpu_torch.ops import cuda_gelu as cg
     from transductive_clip_tpu_torch.ops import cuda_pool as cp
     from transductive_clip_tpu_torch.ops import cuda_tim as ct
@@ -2591,7 +2743,8 @@ def _kernel_counters():
             "fused_identity_bottleneck": cb.fused_identity_bottleneck,
             "auction_assign": cau.auction_assign,
             "avg_pool_nhwc": cp.avg_pool_nhwc,
-            "quick_gelu": cg.quick_gelu}
+            "quick_gelu": cg.quick_gelu,
+            "add_layer_norm": can.add_layer_norm}
 
 
 def _tp_nccl_probe(group):
@@ -3156,6 +3309,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     try:
+        from transductive_clip_tpu_torch.ops import cuda_add_norm as can
         from transductive_clip_tpu_torch.ops import cuda_attention as ca
         from transductive_clip_tpu_torch.ops import cuda_auction as cau
         from transductive_clip_tpu_torch.ops import cuda_bottleneck as cb
@@ -3237,6 +3391,11 @@ def main():
         "quick_gelu": (cg.quick_gelu, cg.quick_gelu_reference,
                        "transductive_clip_tpu/models/clip/layers.py:18",
                        "quick_gelu.cu"),
+        # no Pallas kernel: the JAX blocks' residual adds and LayerNorms
+        # are plain XLA
+        "add_layer_norm": (can.add_layer_norm, can.add_layer_norm_reference,
+                           "transductive_clip_tpu/models/clip/layers.py:77",
+                           "add_layer_norm.cu"),
     }
     records = {}
     with Phase("kernels_vs_plain"):
@@ -3301,6 +3460,7 @@ def main():
     run_kernel_checks_clip(records)
     run_avg_pool_checks(records)
     run_quick_gelu_checks(records)
+    run_add_layer_norm_checks(records)
 
     counters = {name: k[0] for name, k in kernels.items()}
     launches = {}

@@ -17,6 +17,7 @@ import types
 import pytest
 import torch
 
+from transductive_clip_tpu_torch.ops import cuda_add_norm
 from transductive_clip_tpu_torch.ops import cuda_attention
 from transductive_clip_tpu_torch.ops import cuda_auction
 from transductive_clip_tpu_torch.ops import cuda_bottleneck
@@ -41,6 +42,7 @@ ENTRIES = {
     "tclip_newton_minka_final": cuda_newton,
     "tclip_avg_pool": cuda_pool,
     "tclip_quick_gelu": cuda_gelu,
+    "tclip_add_layer_norm": cuda_add_norm,
     "tclip_special_check": dirichlet_fixtures,
 }
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.cuda_add_norm import add_layer_norm
 from ...ops.cuda_attention import fused_attention
 from ...ops.cuda_gelu import quick_gelu
 
@@ -67,6 +68,10 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
+    """One block's parameters under OpenAI's keys. It has no forward of its
+    own: ``Transformer.forward`` runs the blocks, fusing each residual add
+    with the LayerNorm after it across block boundaries."""
+
     def __init__(self, width: int, heads: int, attn_impl: str = "xla"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width, eps=LN_EPS)
@@ -78,12 +83,17 @@ class ResidualAttentionBlock(nn.Module):
             ("c_proj", nn.Linear(4 * width, width)),
         ]))
 
-    def forward(self, x, mask=None):
-        x = x + self.attn(self.ln_1(x), mask)
-        return x + self.mlp(self.ln_2(x))
-
 
 class Transformer(nn.Module):
+    """OpenAI CLIP's stack of blocks, ``x = x + attn(ln_1(x))`` then ``x = x
+    + mlp(ln_2(x))`` in each. The blocks hold the parameters (and their
+    state-dict keys); this forward runs them, so that each residual add and
+    the LayerNorm after it are one ``ops/cuda_add_norm.add_layer_norm`` (one
+    hand-written pass on the card, the plain pair elsewhere): a block's
+    first add with its own ``ln_2``, its second with the next block's
+    ``ln_1``. That is 2 x layers - 1 pairs; the first ``ln_1`` and the last
+    add run alone."""
+
     def __init__(self, width: int, layers: int, heads: int,
                  attn_impl: str = "xla"):
         super().__init__()
@@ -92,6 +102,15 @@ class Transformer(nn.Module):
              for _ in range(layers)])
 
     def forward(self, x, mask=None):
-        for block in self.resblocks:
-            x = block(x, mask)
-        return x
+        blocks = self.resblocks
+        h = blocks[0].ln_1(x)
+        for i, block in enumerate(blocks):
+            # attn's and mlp's outputs are fresh: the kernel writes the sum
+            # over them
+            ln = block.ln_2
+            x, h = add_layer_norm(x, block.attn(h, mask), ln.weight,
+                                  ln.bias, ln.eps)
+            if i + 1 == len(blocks):
+                return x + block.mlp(h)
+            ln = blocks[i + 1].ln_1
+            x, h = add_layer_norm(x, block.mlp(h), ln.weight, ln.bias, ln.eps)

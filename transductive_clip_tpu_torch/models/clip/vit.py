@@ -11,7 +11,11 @@ launches of ``ops/cuda_attention``'s K4a and K4b in the forward, whichever
 the transformer and outside its loop; and, the same way, the MLP
 activations it ran (``vit.mlp_activations``, one a layer) and those that
 ran in the QuickGELU kernel (``vit.kernel_activations``: the launches of
-``ops/cuda_gelu.quick_gelu`` in the forward; 0 off the card)."""
+``ops/cuda_gelu.quick_gelu`` in the forward; 0 off the card); and the
+residual adds its transformer ran with the LayerNorm after them
+(``vit.add_norms``, 2 x layers - 1) and those that ran in the add-norm
+kernel (``vit.kernel_add_norms``: the launches of
+``ops/cuda_add_norm.add_layer_norm`` in the forward; 0 off the card)."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from torch import nn
 
 from ...core.profiling import count
+from ...ops.cuda_add_norm import add_layer_norm
 from ...ops.cuda_attention import attention_blocked, attention_rows
 from ...ops.cuda_gelu import quick_gelu
 from .config import CLIPVisionConfig
@@ -57,11 +62,14 @@ class VisionTransformer(nn.Module):
         x = x + self.positional_embedding.to(x.dtype)
         x = self.ln_pre(x)
         launched, activated = _kernel_launches(), quick_gelu.launches
+        normed = add_layer_norm.launches
         x = self.transformer(x)
         layers = len(self.transformer.resblocks)
         count("vit.attention", layers)
         count("vit.kernel_attention", _kernel_launches() - launched)
         count("vit.mlp_activations", layers)
         count("vit.kernel_activations", quick_gelu.launches - activated)
+        count("vit.add_norms", 2 * layers - 1)
+        count("vit.kernel_add_norms", add_layer_norm.launches - normed)
         x = self.ln_post(x[:, 0, :])
         return x @ self.proj.to(x.dtype)

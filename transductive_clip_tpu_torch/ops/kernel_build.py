@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # Dirichlet kernels' arithmetic; chip_smoke.py builds them all together
 SOURCES = ("dirichlet_solve.cu", "tim_support_grad.cu", "attention.cu",
            "bottleneck.cu", "auction.cu", "newton_minka.cu", "avg_pool.cu",
-           "quick_gelu.cu", "special_check.cu")
+           "quick_gelu.cu", "add_layer_norm.cu", "special_check.cu")
 # no --use_fast_math: the parity of the kernels with their plain versions
 # rests on IEEE fp32 division, logf and expf; -Xptxas -v reports each
 # kernel's registers, shared memory and spills into ``build_log``
