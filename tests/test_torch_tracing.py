@@ -2,7 +2,10 @@
 zero-shot EM-Dirichlet evaluation records in its evaluator's PhaseTimer
 equal hand counts of the same work, the spans enter a profiler range only
 while a profiler records, and ``span``/``count`` are inert with no timer
-active."""
+active. Each EM iteration is one span ``em.step`` with the solver's spans
+inside it, and each evaluation's feature upload and sampler pools one
+phase each, ``upload`` and ``class_pools``, in the zero-shot and the
+few-shot evaluator."""
 
 import os
 
@@ -13,7 +16,11 @@ import torch
 from transductive_clip_tpu_torch.core import profiling
 from transductive_clip_tpu_torch.core.config import load_full_config
 from transductive_clip_tpu_torch.core.profiling import PhaseTimer, count, span
-from transductive_clip_tpu_torch.eval import EvaluatorZeroShot
+from transductive_clip_tpu_torch.eval import (
+    EvaluatorFewShot,
+    EvaluatorZeroShot,
+)
+from transductive_clip_tpu_torch.eval import few_shot as fs_eval
 from transductive_clip_tpu_torch.eval import zero_shot as zs_eval
 from transductive_clip_tpu_torch.methods.few_shot import em_dirichlet as fs_em
 from transductive_clip_tpu_torch.methods.zero_shot import em_dirichlet as zs_em
@@ -249,3 +256,161 @@ def test_parallel_counters_land_in_the_active_timer(tmp_path):
     assert timer.counters == {"parallel.all_reduce_calls",
                               "parallel.all_reduce_bytes",
                               "parallel.gather_host_calls"}
+
+
+def _fs_cfg(batches=2, batch_size=3):
+    return load_full_config(
+        opts=["dataset", "dtd", "method", "em_dirichlet", "shots", "2",
+              "n_query", str(N_QUERY), "batch_size", str(batch_size),
+              "number_tasks", str(batches * batch_size), "iter", "8",
+              "save_results", "False"],
+        config_root=os.path.join(REPO, "config"))
+
+
+def _evaluate(kind, seed, batches=2):
+    """One CPU evaluation of EM-Dirichlet through the ``kind`` evaluator
+    (the few-shot one draws its support from a second table)."""
+    feats, labels = _features(seed)
+    if kind == "zero_shot":
+        EvaluatorZeroShot(device="cpu", args=_cfg(batches)).evaluate_tasks(
+            feats, labels)
+    else:
+        support, support_labels = _features(seed + 100)
+        EvaluatorFewShot(device="cpu", args=_fs_cfg(batches)).evaluate_tasks(
+            support, support_labels, feats, labels)
+
+
+@pytest.fixture
+def timers_of_both(monkeypatch):
+    """Every PhaseTimer either evaluator makes."""
+    made = []
+
+    class Recorded(PhaseTimer):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    monkeypatch.setattr(zs_eval, "PhaseTimer", Recorded)
+    monkeypatch.setattr(fs_eval, "PhaseTimer", Recorded)
+    return made
+
+
+def test_em_step_spans_every_iteration_the_guard_included(evaluator_timers,
+                                                           hand_counts):
+    feats, labels = _features(7)
+    EvaluatorZeroShot(device="cpu", args=_cfg()).evaluate_tasks(feats,
+                                                                labels)
+    (timer,) = evaluator_timers
+    # batch 0 hosts the compact_first guard: its exact re-solve runs the
+    # same loop
+    assert len(hand_counts["em"]) == 3
+    assert timer.counts["em.step"] == timer.totals["em.iterations"] == sum(
+        hand_counts["em"])
+    # the solves lie inside the steps, the steps inside the method
+    assert 0 < timer.totals["newton"] < timer.totals["em.step"]
+    assert timer.totals["em.step"] < timer.totals["method"]
+
+
+@pytest.mark.parametrize("kind", ["zero_shot", "few_shot"])
+def test_em_step_count_equals_the_em_iterations(kind, timers_of_both):
+    _evaluate(kind, 8)
+    (timer,) = timers_of_both
+    assert timer.counts["em.step"] == timer.totals["em.iterations"] > 0
+    assert "em.step" not in timer.counters
+
+
+@pytest.mark.parametrize("n_class,compact", [(12, True), (47, True),
+                                             (47, False)])
+def test_few_shot_em_step_count_equals_its_iterations(n_class, compact):
+    """At 47 classes and 5 queries cluster compaction engages, so the
+    transition step and the compact steps run; at 12 it does not."""
+    rng = np.random.default_rng(9)
+    xs, ys, xq, _ = make_few_shot_tasks(rng, 2, N_QUERY, n_class, 2)
+    with PhaseTimer().active() as timer:
+        _, _, n_exec, _ = fs_em.em_dirichlet_fs_infer(
+            torch.as_tensor(xs), torch.as_tensor(xq), torch.as_tensor(ys),
+            50.0, n_iter=6, iter_mm=100, n_class=n_class, hard=False,
+            solver="minka", early_stop=False, compact=compact,
+            return_n_iter=True)
+    assert timer.counts["em.step"] == timer.totals["em.iterations"] == (
+        n_exec) == 6
+
+
+@pytest.mark.parametrize("kind,phase", [("zero_shot", "upload"),
+                                        ("few_shot", "upload"),
+                                        ("zero_shot", "class_pools"),
+                                        ("few_shot", "class_pools")])
+def test_a_set_up_phase_is_recorded_once_an_evaluation(kind, phase,
+                                                       timers_of_both):
+    with PhaseTimer().active() as outer:
+        _evaluate(kind, 10)
+    (timer,) = timers_of_both
+    assert timer.counts[phase] == outer.counts[phase] == 1
+    assert timer.totals[phase] == outer.totals[phase] > 0
+    assert f"{phase}: " in timer.summary()
+    assert phase not in timer.counters
+    assert profiling._sink is None
+
+
+def _ranges(prof, name):
+    return [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation() and e.name() == name]
+
+
+def _inside(inner, outers):
+    return any(s <= inner[0] and inner[1] <= t for s, t in outers)
+
+
+@pytest.mark.parametrize("kind", ["zero_shot", "few_shot"])
+def test_em_step_and_upload_are_ranges_around_the_solver_spans(kind):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _evaluate(kind, 11, batches=1)
+    steps, uploads = _ranges(prof, "em.step"), _ranges(prof, "upload")
+    newton, waits = _ranges(prof, "newton"), _ranges(prof, "host_wait")
+    assert len(uploads) == len(_ranges(prof, "class_pools")) == 1
+    assert steps and newton and waits
+    assert any(_inside(w, steps) for w in waits)
+    inside = [_inside(n, steps) for n in newton]
+    if kind == "zero_shot":
+        # every zero-shot solve is an EM iteration's
+        assert all(inside)
+    else:
+        # the few-shot pure-support solve runs between iterations 1 and 2
+        assert any(inside)
+    assert not any(_inside(u, steps) for u in uploads)
+
+
+@pytest.mark.parametrize("kind", ["zero_shot", "few_shot"])
+def test_em_step_and_upload_enter_no_range_without_a_profiler(kind,
+                                                              monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    _evaluate(kind, 12, batches=1)
+    assert profiling._sink is None
+
+
+@pytest.mark.parametrize("kind", ["zero_shot", "few_shot"])
+def test_em_step_records_nothing_without_a_timer(kind, monkeypatch):
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("recorded with no timer active")
+
+    monkeypatch.setattr(PhaseTimer, "_record", refuse)
+    assert profiling._sink is None
+    rng = np.random.default_rng(13)
+    if kind == "zero_shot":
+        feats, _ = _features(13)
+        x = torch.as_tensor(feats[rng.choice(len(feats), (2, N_QUERY))])
+        zs_em.em_dirichlet_infer(x, 50.0, n_iter=4, iter_mm=100, hard=False,
+                                 solver="minka", compact_first=True)
+    else:
+        xs, ys, xq, _ = make_few_shot_tasks(rng, 2, N_QUERY, N_CLASS, 2)
+        fs_em.em_dirichlet_fs_infer(
+            torch.as_tensor(xs), torch.as_tensor(xq), torch.as_tensor(ys),
+            50.0, n_iter=4, iter_mm=100, n_class=N_CLASS, hard=False,
+            solver="minka")

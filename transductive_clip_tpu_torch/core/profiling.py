@@ -6,18 +6,23 @@ transductive_clip_tpu/core/profiling.py).
   (``add``) into ``totals`` by name, with the number of records of each in
   ``counts``; ``summary()`` prints spans in seconds and counters as counts.
   Both evaluators make one an evaluation and make it the process's sink
-  (``active()``) around their batch loop, so what the code under them
-  records lands there and in their "phase timing" log line. A timer made
-  active inside another's extent records into both.
+  (``active()``) around their set-up phases and their batch loop, so what
+  the code under them records lands there and in their "phase timing" log
+  line. A timer made active inside another's extent records into both.
 * ``span(name)`` and ``count(name, n)`` record into the active timer from
   wherever the work happens (``ops.common.to_host``: ``host_wait``;
   ``ops.dirichlet.minka_newton_update_alpha``: ``newton``,
   ``newton.steps``, ``newton.kernel_steps`` (the steps that ran in
   ``csrc/newton_minka.cu``), ``newton.row_steps``; the EM-Dirichlet loops:
-  ``em.iterations``, and the zero-shot compact steps ``em.compact_steps``,
-  ``em.fast_steps``, ``em.populated``; ``parallel.task_parallel``:
-  ``parallel.*``). With no timer active they do nothing (one global
-  read).
+  ``em.step`` (one an iteration, its step and its criterion read, with
+  ``newton`` and ``host_wait`` inside), ``em.iterations``, and the
+  zero-shot compact steps ``em.compact_steps``, ``em.fast_steps``,
+  ``em.populated``; ``parallel.task_parallel``: ``parallel.*``). With no
+  timer active they do nothing (one global read). The evaluators record
+  their own phases on their timer (``upload``: the feature tables to the
+  device, and ``class_pools``: the sampler's rows of each class, once an
+  evaluation each; ``sampling``, ``dispatch``, ``method``,
+  ``deferred_fetch``).
 * While a profiler records, every span and phase is also a
   ``torch.profiler.record_function`` range, so it shows in the same trace
   as the kernels, on its clock; otherwise no range is entered.

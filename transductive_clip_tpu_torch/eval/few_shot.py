@@ -206,18 +206,25 @@ class EvaluatorFewShot:
             and int(supp_unique.min()) == 0
         )
         if device_gather:
-            feats_s_dev, feats_q_dev = (
-                torch.as_tensor(np.asarray(f, np.float32), device=self.device)
-                for f in (support_features, query_features))
-            labels_s_np = np.asarray(support_labels)
-            labels_q_np = np.asarray(query_labels)
-            if flip:
-                feats_s_dev = torch.flip(feats_s_dev, dims=[-1])
-                feats_q_dev = torch.flip(feats_q_dev, dims=[-1])
-                labels_s_np = n_class - 1 - labels_s_np
-                labels_q_np = n_class - 1 - labels_q_np
-            labels_s_dev = torch.as_tensor(labels_s_np, device=self.device)
-            labels_q_dev = torch.as_tensor(labels_q_np, device=self.device)
+            # the upload is the timer's phase ``upload``, recorded while
+            # the timer is active so that a timer around the evaluation
+            # sees it
+            with timer.active(), timer.phase("upload"):
+                feats_s_dev, feats_q_dev = (
+                    torch.as_tensor(np.asarray(f, np.float32),
+                                    device=self.device)
+                    for f in (support_features, query_features))
+                labels_s_np = np.asarray(support_labels)
+                labels_q_np = np.asarray(query_labels)
+                if flip:
+                    feats_s_dev = torch.flip(feats_s_dev, dims=[-1])
+                    feats_q_dev = torch.flip(feats_q_dev, dims=[-1])
+                    labels_s_np = n_class - 1 - labels_s_np
+                    labels_q_np = n_class - 1 - labels_q_np
+                labels_s_dev = torch.as_tensor(labels_s_np,
+                                               device=self.device)
+                labels_q_dev = torch.as_tensor(labels_q_np,
+                                               device=self.device)
         # fused path (methods/base.py run_task_fused): per batch only the
         # two index matrices cross; the gathers run on the device
         use_fused = resolve_fused_dispatch(args, device_gather)
@@ -225,13 +232,15 @@ class EvaluatorFewShot:
         results_task, results_time = [], []
         n_batches = _resolve_n_batches(args, self.logger)
         # sampler pools are RNG-free functions of the constant label arrays:
-        # built once (draw-order exact: only __iter__ consumes rng)
+        # built once (draw-order exact: only __iter__ consumes rng), in the
+        # timer's phase ``class_pools``
         sampler = CategoriesSamplerFewShot(
             args.batch_size, args.k_eff, args.n_class, args.shots,
             args.n_query, force_query_size=True, rng=rng,
             support_draw=str(args.get("support_draw", "vectorized")),
         )
-        sampler.create_list_classes(support_labels, query_labels)
+        with timer.active(), timer.phase("class_pools"):
+            sampler.create_list_classes(support_labels, query_labels)
 
         def tasks_from_idx(idx_s, idx_q):
             tasks = {

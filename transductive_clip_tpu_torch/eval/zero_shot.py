@@ -292,24 +292,29 @@ class EvaluatorZeroShot:
         method.set_task_group(group)
         timer = PhaseTimer()
         # device-resident feature table: rows are gathered on the device
-        # per batch (device_gather: False restores the host gather+stack)
+        # per batch (device_gather: False restores the host gather+stack).
+        # Its upload is the timer's phase ``upload``, recorded while the
+        # timer is active so that a timer around the evaluation sees it
         device_gather = bool(args.get("device_gather", True))
         if device_gather:
-            features_dev = torch.as_tensor(np.asarray(features, np.float32),
-                                           device=self.device)
-            labels_np = np.asarray(labels)
-            labels_dev = torch.as_tensor(labels_np, device=self.device)
+            with timer.active(), timer.phase("upload"):
+                features_dev = torch.as_tensor(
+                    np.asarray(features, np.float32), device=self.device)
+                labels_np = np.asarray(labels)
+                labels_dev = torch.as_tensor(labels_np, device=self.device)
         use_fused = resolve_fused_dispatch(args, device_gather)
 
         results_task, results_time = [], []
         n_batches = _resolve_n_batches(args, self.logger)
         # pools are RNG-free functions of the constant labels: built once
-        # (hoisting is draw-order exact since only __iter__ consumes rng)
+        # (hoisting is draw-order exact since only __iter__ consumes rng),
+        # in the timer's phase ``class_pools``
         sampler = CategoriesSamplerZeroShot(
             args.batch_size, args.k_eff, args.n_class, args.n_query,
             force_query_size=True, rng=rng,
         )
-        sampler.create_list_classes(labels)
+        with timer.active(), timer.phase("class_pools"):
+            sampler.create_list_classes(labels)
         defer = resolve_defer_fetch(args, self.device, use_fused)
         deferred, t_tail0 = [], None
         # every deferred batch holds its handles (and, with the auction,

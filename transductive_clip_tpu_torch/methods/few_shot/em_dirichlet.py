@@ -52,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core.profiling import count
+from ...core.profiling import count, span
 from ...ops.common import EPS, get_one_hot, select_rows_covering, to_host
 from ...parallel.task_parallel import batch_rows, class_shard, task_share
 from ...ops.dirichlet import (
@@ -92,11 +92,12 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
     Returns (u [N, n, K], criterions [n_iter]); with ``return_n_iter`` also
     the executed iteration count and the max populated-cluster count any
     compact iteration consumed (host ints), the former also counted in
-    ``em.iterations`` (core.profiling). ``early_stop_tol`` is compared
-    in fp32, as the JAX package compares it. ``group``: the tasks are this
-    rank's equal share of the group's batch, whose decisions and criterion
-    trace these are. Under ``group.tp`` > 1 this rank holds 1/tp of the
-    cluster rows (module docstring), and u comes back whole.
+    ``em.iterations`` (core.profiling), each iteration a span ``em.step``.
+    ``early_stop_tol`` is compared in fp32, as the JAX package compares
+    it. ``group``: the tasks are this rank's equal share of the group's
+    batch, whose decisions and criterion trace these are. Under
+    ``group.tp`` > 1 this rank holds 1/tp of the cluster rows (module
+    docstring), and u comes back whole.
     """
     n_task, n_query, _ = query.shape
     device = query.device
@@ -223,10 +224,13 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
                 int(share_max))
 
     # iteration 1 always solves all K rows (the dense initial u = query
-    # gives every row query mass)
-    u, alpha, l12, l3 = step_full(cs.cols(query), alpha0)
-    rel = rel_per_task(alpha0, alpha, cs)
-    crit, crit_max, pop, share_max = observe(rel, u)
+    # gives every row query mass). Each EM iteration, its step and its
+    # observe, is one span ``em.step`` (``newton`` and ``host_wait`` nest
+    # inside it)
+    with span("em.step"):
+        u, alpha, l12, l3 = step_full(cs.cols(query), alpha0)
+        rel = rel_per_task(alpha0, alpha, cs)
+        crit, crit_max, pop, share_max = observe(rel, u)
     crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
     pop_max = 0
@@ -242,34 +246,36 @@ def em_dirichlet_fs_infer(support, query, y_s, lambd, n_iter: int,
         if not early_stop or crit_max >= tol:
             # iteration 2, the transition step: every zero-mass row moves to
             # alpha_base — full-width bookkeeping, paid once
-            idx, alpha_c, _ = compact_rows(u, alpha, alpha_base, pop,
-                                           share_max)
-            alpha2 = alpha_base.clone()
-            alpha2.scatter_(1, _rows(idx, n_class), alpha_c)
-            rel = rel_per_task(alpha, alpha2, cs)
-            alpha = alpha2
-            l12, l3 = dirichlet_logits_cache(log_q, alpha)
-            u = finish_step(u, l12, l3)
-            ss = cs.sum((alpha * alpha).sum((1, 2)))
-            prev_idx = idx
-            pop_max = pop
-            it = 2
-            crit, crit_max, pop, share_max = observe(rel, u)
-            crits = torch.where(steps >= 1, crit, crits)
+            with span("em.step"):
+                idx, alpha_c, _ = compact_rows(u, alpha, alpha_base, pop,
+                                               share_max)
+                alpha2 = alpha_base.clone()
+                alpha2.scatter_(1, _rows(idx, n_class), alpha_c)
+                rel = rel_per_task(alpha, alpha2, cs)
+                alpha = alpha2
+                l12, l3 = dirichlet_logits_cache(log_q, alpha)
+                u = finish_step(u, l12, l3)
+                ss = cs.sum((alpha * alpha).sum((1, 2)))
+                prev_idx = idx
+                pop_max = pop
+                it = 2
+                crit, crit_max, pop, share_max = observe(rel, u)
+                crits = torch.where(steps >= 1, crit, crits)
 
     while it < n_iter and (not early_stop or crit_max >= tol):
-        if use_compact:
-            u, alpha, l12, l3, prev_idx, diff_ss, delta_ss = step_compact(
-                u, alpha, l12, l3, prev_idx, alpha_base, pop, share_max)
-            rel = torch.sqrt(diff_ss) / torch.sqrt(ss)
-            ss = ss + delta_ss
-            pop_max = max(pop_max, pop)
-        else:
-            alpha_old = alpha
-            u, alpha, l12, l3 = step_full(u, alpha_old)
-            rel = rel_per_task(alpha_old, alpha, cs)
-        crit, crit_max, pop, share_max = observe(rel, u)
-        crits = torch.where(steps >= it, crit, crits)
+        with span("em.step"):
+            if use_compact:
+                u, alpha, l12, l3, prev_idx, diff_ss, delta_ss = step_compact(
+                    u, alpha, l12, l3, prev_idx, alpha_base, pop, share_max)
+                rel = torch.sqrt(diff_ss) / torch.sqrt(ss)
+                ss = ss + delta_ss
+                pop_max = max(pop_max, pop)
+            else:
+                alpha_old = alpha
+                u, alpha, l12, l3 = step_full(u, alpha_old)
+                rel = rel_per_task(alpha_old, alpha, cs)
+            crit, crit_max, pop, share_max = observe(rel, u)
+            crits = torch.where(steps >= it, crit, crits)
         it += 1
     u = cs.gather(u)
     count("em.iterations", it)

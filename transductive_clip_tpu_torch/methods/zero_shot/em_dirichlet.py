@@ -64,7 +64,7 @@ import warnings
 import numpy as np
 import torch
 
-from ...core.profiling import count
+from ...core.profiling import count, span
 from ...ops.common import (
     EPS,
     device_sync,
@@ -279,8 +279,9 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
 
     ``early_stop_tol`` is compared in fp32, as the JAX package compares it.
     The executed iterations are counted in ``em.iterations``
-    (core.profiling), the compact steps in ``em.compact_steps``,
-    ``em.fast_steps`` and ``em.populated`` (``_em_step_compact``).
+    (core.profiling) and each is a span ``em.step``; the compact steps are
+    counted in ``em.compact_steps``, ``em.fast_steps`` and ``em.populated``
+    (``_em_step_compact``).
 
     ``group`` (a parallel.TaskGroup): ``query`` is this dp slice's
     contiguous share of a batch of ``group.dp`` equal shares. Every
@@ -345,34 +346,38 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
     ss = torch.full((n_task,), float(n_class) * n_class, dtype=torch.float32,
                     device=device)
     pop_max = 0
-    if use_compact and compact_first:
-        # iteration 1 compact too, via the analytic alpha = ones logits
-        # cache (l3 = (a-1).log-x = 0, l12 = lgamma(K)). Its populated count
-        # (= K, dense raw features) is excluded from the sparsity warning:
-        # the first-batch guard validates it instead.
-        l12 = torch.full((n_task, n_rows), math.lgamma(n_class),
-                         dtype=torch.float32, device=device)
-        l3 = torch.zeros((n_task, n_query, n_rows), dtype=torch.float32,
-                         device=device)
-        pops1 = populated(u)
-        pop1, share1_max = to_host(group_max(torch.stack(
-            (pops1.sum(1).max(), pops1.max())), group))
-        u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-            u, alpha, l12, l3, log_query, pop1, share1_max, "topk", share1)
-        # ||ones||^2 = K*K exactly
-        rel = _rel_from_ss(diff_ss, ss)
-        ss = ss + delta_ss
-    else:
-        alpha_old = alpha
-        u, alpha, l12, l3 = _em_step_full(
-            u, alpha, log_query, lambd, n_query, n_class, iter_mm, solver,
-            hard, share1, cs,
-        )
-        rel = rel_per_task(alpha_old, alpha, cs)
-        if use_compact:
-            # carried ||alpha||^2 for the compact criterion
-            ss = cs.sum((alpha ** 2).sum((1, 2)))
-    crit, rel_h, pops_h = observe(rel, u, share1)
+    # each EM iteration, its step and its observe, is one span ``em.step``
+    # (the solver's ``newton`` and ``host_wait`` nest inside it)
+    with span("em.step"):
+        if use_compact and compact_first:
+            # iteration 1 compact too, via the analytic alpha = ones
+            # logits cache (l3 = (a-1).log-x = 0, l12 = lgamma(K)). Its
+            # populated count (= K, dense raw features) is excluded from
+            # the sparsity warning: the first-batch guard validates it
+            # instead.
+            l12 = torch.full((n_task, n_rows), math.lgamma(n_class),
+                             dtype=torch.float32, device=device)
+            l3 = torch.zeros((n_task, n_query, n_rows), dtype=torch.float32,
+                             device=device)
+            pops1 = populated(u)
+            pop1, share1_max = to_host(group_max(torch.stack(
+                (pops1.sum(1).max(), pops1.max())), group))
+            u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
+                u, alpha, l12, l3, log_query, pop1, share1_max, "topk", share1)
+            # ||ones||^2 = K*K exactly
+            rel = _rel_from_ss(diff_ss, ss)
+            ss = ss + delta_ss
+        else:
+            alpha_old = alpha
+            u, alpha, l12, l3 = _em_step_full(
+                u, alpha, log_query, lambd, n_query, n_class, iter_mm, solver,
+                hard, share1, cs,
+            )
+            rel = rel_per_task(alpha_old, alpha, cs)
+            if use_compact:
+                # carried ||alpha||^2 for the compact criterion
+                ss = cs.sum((alpha ** 2).sum((1, 2)))
+        crit, rel_h, pops_h = observe(rel, u, share1)
     crits = crit.repeat(n_iter)
     steps = torch.arange(n_iter, device=device)
 
@@ -388,22 +393,24 @@ def em_dirichlet_infer(query, lambd, n_iter: int, iter_mm: int, hard: bool,
         nonlocal it, crits, pop_max
         u, alpha, l12, l3, ss = state
         while it < n_iter and busy(rel_h):
-            if use_compact:
-                pop = int(pops_h.sum(1).max())
-                u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
-                    u, alpha, l12, l3, lq, pop, pops_h.max(), select, share)
-                rel = _rel_from_ss(diff_ss, ss)
-                ss = ss + delta_ss
-                pop_max = max(pop_max, pop)
-            else:
-                alpha_old = alpha
-                u, alpha, l12, l3 = _em_step_full(
-                    u, alpha_old, lq, lambd, n_query, n_class, iter_mm,
-                    solver, hard, share, cs,
-                )
-                rel = rel_per_task(alpha_old, alpha, cs)
-            crit, rel_h, pops_h = observe(rel, u, share)
-            crits = torch.where(steps >= it, crit, crits)
+            with span("em.step"):
+                if use_compact:
+                    pop = int(pops_h.sum(1).max())
+                    u, alpha, l12, l3, diff_ss, delta_ss = compact_step(
+                        u, alpha, l12, l3, lq, pop, pops_h.max(), select,
+                        share)
+                    rel = _rel_from_ss(diff_ss, ss)
+                    ss = ss + delta_ss
+                    pop_max = max(pop_max, pop)
+                else:
+                    alpha_old = alpha
+                    u, alpha, l12, l3 = _em_step_full(
+                        u, alpha_old, lq, lambd, n_query, n_class, iter_mm,
+                        solver, hard, share, cs,
+                    )
+                    rel = rel_per_task(alpha_old, alpha, cs)
+                crit, rel_h, pops_h = observe(rel, u, share)
+                crits = torch.where(steps >= it, crit, crits)
             it += 1
         return (u, alpha, l12, l3, ss), rel_h, pops_h
 
